@@ -7,11 +7,15 @@ non-zero, and no phase's exception is caught:
   1. device: require a Hopper GPU; print its name, power limit and versions;
   2. build: compile the hand-written kernels of csrc/ (nvcc, sm_90a);
   3. each kernel against its plain PyTorch twin on the card, at the main
-     path's shapes (whiten_fused also at the hybrid factorisation's panel
-     shape): max error against the stated tolerance, and both times (ms per
-     call by CUDA events around 10 calls, median of 7 windows; ms on the
-     device from the profiler); then the card's likelihood and gradient
-     against the plain path on the CPU, on a small input;
+     path's shapes (whiten_fused also at ragged blocks of n <= 128 and at
+     the hybrid factorisation's panel shape): max error against the stated
+     tolerance, and both times (ms per call by CUDA events around 10 calls,
+     median of 7 windows; ms on the device from the profiler);
+     whiten_fused's device time split by kernel name into its diagonal,
+     panel and trailing kernels at (2, 1024), (10, 1024) and the hybrid
+     panel; a failed lane (indefinite, NaN) flagged by its pivot; then the
+     card's likelihood and gradient against the plain path on the CPU, on
+     a small input;
   4. the main path at bench size (bench.py: n=1000, d=5): GaussianProcess.fit
      plus the BFGS EI argmax with 25 restarts, 2 warm-ups and 5 timed reps;
      the launch counters are zeroed just before and read just after, and
@@ -80,19 +84,41 @@ def time_ms(fn, windows: int = 7, calls: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 10) -> float:
-    """Device ms per call of fn(): the summed duration of every kernel the
-    profiler traced over `calls` calls, divided by `calls`."""
+def device_ms_by_kernel(fn, calls: int = 10) -> dict:
+    """Device ms per call of fn(), by kernel name: the summed duration of the
+    kernels of each name the profiler traced over `calls` calls, divided by
+    `calls`."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    assert total_us > 0, "the profiler traced no kernel"
-    return total_us / 1e3 / calls
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    assert by_name, "the profiler traced no kernel"
+    return by_name
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device ms per call of fn(): every traced kernel's time, summed."""
+    return sum(device_ms_by_kernel(fn, calls).values())
+
+
+WHITEN_PARTS = (("diagonal", "chol_diag_kernel"), ("panel", "panel_solve_kernel"),
+                ("trailing", "trailing_update_kernel"))
+
+
+def whiten_split(fn, calls: int = 10) -> dict:
+    """whiten_fused's device ms per call split into its three kernels (by
+    name), and what else the call ran on the device (the workspace copies)."""
+    split = dict.fromkeys([part for part, _ in WHITEN_PARTS] + ["other"], 0.0)
+    for name, ms in device_ms_by_kernel(fn, calls).items():
+        part = next((p for p, k in WHITEN_PARTS if k in name), "other")
+        split[part] += ms
+    return split
 
 
 def bench_raw(n: int):
@@ -157,10 +183,18 @@ def check_matern():
     return worst, head
 
 
+def log_whiten_split(label: str, split: dict, nb: int) -> None:
+    log(f"  whiten_fused {label} device split: " + ", ".join(
+        f"{part} {ms:.4f} ms" for part, ms in split.items())
+        + f"; diagonal {split['diagonal'] * 1e3 / nb:.2f} us per 128 block")
+
+
 def check_whiten():
     worst, head = 0.0, None
-    # (batch, n): the MLE ladder's lanes at each bucket/rung size
-    for batch, n in ((10, 16), (10, 64), (10, 256), (6, 512), (2, 1024), (10, 1024)):
+    # (batch, n): the MLE ladder's lanes at each bucket/rung size, and
+    # ragged blocks (any n <= 128 is one block of width n)
+    for batch, n in ((10, 16), (10, 37), (10, 64), (10, 100), (2, 128), (10, 256), (6, 512),
+                     (2, 1024), (10, 1024)):
         R = kernel_like(batch, n, seed=n + batch)
         B = torch.randn((batch, n, 2), device="cuda", generator=torch.Generator(device="cuda").manual_seed(n))
         R_before = R.clone()
@@ -181,6 +215,8 @@ def check_whiten():
             f"twin {t_p:.4f} ms/call ({d_p:.4f} ms on the device)")
         assert errL < WHITEN_L_TOL and errW < WHITEN_W_TOL, (n, errL, errW)
         assert bool((piv > 0).all()) and Dinv.shape == Dinv0.shape
+        if n == 1024:
+            log_whiten_split(f"({batch}, {n}, {n})", whiten_split(lambda: whiten_fused(R, B)), n // 128)
         if (batch, n) == (2, 1024):
             head = (t_k, t_p)
     # _factor_hybrid's first superpanel at n=4096: S (2, 1024, 1024) against
@@ -196,17 +232,25 @@ def check_whiten():
     worst = max(worst, float((L - L0).abs().max()), float((W - W0).abs().max()))
     t_k = time_ms(lambda: whiten_fused(S, B), windows=5, calls=2)
     t_p = time_ms(lambda: whiten_plain(S, B), windows=5, calls=2)
+    split = whiten_split(lambda: whiten_fused(S, B), calls=4)
+    d_p = device_ms(lambda: whiten_plain(S, B), calls=4)
     log(f"  whiten_fused hybrid panel (2, 1024, 1024) x (2, 1024, {B.shape[-1]}): relerr L "
         f"{errL:.3e} (tol {WHITEN_L_TOL}), W {errW:.3e} (tol {WHITEN_W_TOL}), min piv "
-        f"{float(piv.min()):.3e}; kernel {t_k:.4f} ms/call, twin {t_p:.4f} ms/call")
+        f"{float(piv.min()):.3e}; kernel {t_k:.4f} ms/call ({sum(split.values()):.4f} ms on the "
+        f"device), twin {t_p:.4f} ms/call ({d_p:.4f} ms on the device)")
+    log_whiten_split("hybrid panel", split, 8)
     assert errL < WHITEN_L_TOL and errW < WHITEN_W_TOL, ("hybrid", errL, errW)
     assert bool((piv > 0).all())
-    R = kernel_like(2, 256, seed=9)
+    # a failed lane: an indefinite pivot reads as not (piv > 0), a NaN wins
+    # the pivot minimum; the healthy lane in the same batch is untouched
+    R = kernel_like(3, 256, seed=9)
     R[1, 0, 0] = -1.0
-    _, _, piv, _, _ = whiten_fused(R, torch.ones((2, 256, 1), device="cuda"))
+    R[2, 200, 7] = R[2, 7, 200] = math.nan
+    _, _, piv, _, _ = whiten_fused(R, torch.ones((3, 256, 1), device="cuda"))
     torch.cuda.synchronize()
-    log(f"  whiten_fused indefinite lane: piv = {float(piv[1]):.3e} (healthy lane {float(piv[0]):.3e})")
-    assert float(piv[0]) > 0 and not (float(piv[1]) > 0)
+    log(f"  whiten_fused failed lanes: indefinite piv = {float(piv[1]):.3e}, NaN piv = "
+        f"{float(piv[2])} (healthy lane {float(piv[0]):.3e})")
+    assert float(piv[0]) > 0 and not (float(piv[1]) > 0) and math.isnan(float(piv[2]))
     return worst, head
 
 

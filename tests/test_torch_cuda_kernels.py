@@ -72,10 +72,10 @@ def test_matern_kernel_gradients_match_twin(dev, nu):
         assert float((a - b).abs().max() / b.abs().max()) < 1e-4
 
 
-@pytest.mark.parametrize("n", [16, 64, 256, 1024])
-def test_whiten_kernel_matches_twin(dev, n):
-    R = torch.tensor(_kernel_like(n, 3, seed=n), device=dev)
-    B = torch.tensor(np.random.default_rng(n).standard_normal((3, n, 3)), dtype=torch.float32, device=dev)
+def _check_whiten(R, B):
+    """whiten_fused against the twin: L within 1e-4 relative, W within 1e-3,
+    the diagonal-block inverses within 1e-3 of I, exact zeros above L's
+    diagonal, and the caller's R untouched."""
     R_before = R.clone()
     before = whiten_fused.launches
     d, W, piv, L, Dinv = whiten_fused(R, B)
@@ -83,17 +83,50 @@ def test_whiten_kernel_matches_twin(dev, n):
     assert whiten_fused.launches == before + 1
     assert torch.equal(R, R_before)
     d0, W0, piv0, L0, Dinv0 = whiten_plain(R, B)
-    assert Dinv.shape == Dinv0.shape == (3, max(1, n // 128), min(n, 128), min(n, 128))
+    Bt, n = R.shape[:2]
+    T = min(n, 128)
+    assert Dinv.shape == Dinv0.shape == (Bt, n // T, T, T)
     assert float((L - L0).abs().max() / L0.abs().max()) < 1e-4
     assert float((d - d0).abs().max()) < 1e-4
     assert float((W - W0).abs().max()) < 1e-3 * max(1.0, float(W0.abs().max()))
     assert bool(torch.all(piv > 0)) and float(((piv - piv0) / piv0).abs().max()) < 1e-2
-    T = min(n, 128)
     for k in range(n // T):
         blk = L[:, k * T:(k + 1) * T, k * T:(k + 1) * T]
-        eye = torch.eye(T, device=dev)
+        eye = torch.eye(T, device=R.device)
         assert float((Dinv[:, k] @ blk - eye).abs().max()) < 1e-3
+        assert float(torch.triu(Dinv[:, k], 1).abs().max()) == 0.0
     assert float(torch.triu(L, 1).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("batch", [1, 2, 10])
+@pytest.mark.parametrize("n", [1, 16, 37, 64, 100, 128, 384, 1024])
+def test_whiten_kernel_matches_twin(dev, n, batch):
+    R = torch.tensor(_kernel_like(n, batch, seed=n), device=dev)
+    B = torch.tensor(np.random.default_rng(n).standard_normal((batch, n, 3)), dtype=torch.float32, device=dev)
+    _check_whiten(R, B)
+
+
+def test_whiten_kernel_hybrid_panel_shape(dev):
+    """The hybrid factorisation's call: a 1024 block against its subdiagonal
+    panel as extra RHS rows (here the panel of a 2048 matrix, plus y)."""
+    R = torch.tensor(_kernel_like(2048, 2, seed=7), device=dev)
+    S = R[:, :1024, :1024].contiguous()
+    B = torch.cat([R[:, 1024:, :1024].mT, torch.ones((2, 1024, 1), device=dev)], dim=-1)
+    _check_whiten(S, B.contiguous())
+
+
+def test_whiten_kernel_nan_lane(dev):
+    """A NaN in one lane's lower triangle makes that lane's pivot NaN and
+    leaves the other lanes as they were."""
+    R = _kernel_like(256, 3, seed=4)
+    R[1, 200, 7] = R[1, 7, 200] = np.nan
+    R = torch.tensor(R, device=dev)
+    _, _, piv, L, _ = whiten_fused(R, torch.ones(3, 256, 1, device=dev))
+    torch.cuda.synchronize()
+    assert math.isnan(float(piv[1]))
+    assert float(piv[0]) > 0.0 and float(piv[2]) > 0.0
+    for b in (0, 2):
+        assert float((L[b] - torch.linalg.cholesky(R[b])).abs().max()) < 1e-4
 
 
 def test_whiten_kernel_flags_indefinite(dev):

@@ -121,6 +121,154 @@ def test_whiten_plain_flags_indefinite_and_keeps_r():
     assert np.array_equal(Rt.numpy(), R)
 
 
+# ---------------------------------------------------------------------------
+# The arithmetic of csrc/whiten.cu, emulated step for step in torch: the
+# diagonal block by 32-wide sub-blocks (a warp's register column sweep, the
+# sub-panel, the trailing update and the blocked inverse assembly), then the
+# panel solve and trailing update over the workspace [R; B^T]. It catches an
+# error in the schedule or the inverse formula on the CPU, where the CUDA
+# kernel cannot run; tests/test_torch_cuda_kernels.py holds the kernel itself
+# to the twin on the card.
+# ---------------------------------------------------------------------------
+
+SUB = 32
+
+
+def _nan_min(a, b):
+    return a if math.isnan(a) else b if math.isnan(b) else min(a, b)
+
+
+def _emulate_sub_block_sweep(blk, w):
+    """One warp's sweep over a (32, 32) register block whose lanes >= w hold
+    identity rows: (L_ss, X_ss, raw pivots of the w live columns)."""
+    row = torch.eye(SUB)
+    row[:w, :w] = blk
+    x = torch.eye(SUB)
+    lanes = torch.arange(SUB)
+    pivots, invs = [], []
+    for j in range(SUB):
+        raw = float(row[j, j])
+        if j < w:
+            pivots.append(raw)
+        p = torch.tensor(raw if raw > 1e-12 else 1e-12)
+        inv = torch.rsqrt(p)                      # d = p / sqrt(p), from one rsqrt
+        d = p * inv
+        lcol = row[:, j] * inv                    # each lane's l
+        below = lanes > j
+        # the rows below eliminate with l / d times lane j's unscaled row of
+        # the inverse; each row is scaled by its own 1 / d after the sweep
+        x[j + 1:, : j + 1] -= (lcol[j + 1:] * inv)[:, None] * x[j, None, : j + 1]
+        invs.append(inv)
+        row[j, j] = d
+        row[below, j] = lcol[below]
+        row[j + 1:, j + 1:] -= lcol[j + 1:, None] * lcol[None, j + 1:]
+    x = x * torch.stack(invs)[:, None]
+    return torch.tril(row[:w, :w]), x[:w, :w], pivots
+
+
+def _emulate_diag_block(S):
+    """chol_diag_kernel on one (T, T) block: (L_kk, Dinv_k, min raw pivot)."""
+    T = S.shape[0]
+    A = torch.tril(S).clone()
+    X = torch.zeros_like(A)  # finished rows: the inverse; rows below: pending sums P
+    pmin = math.inf
+    for s0 in range(0, T, SUB):
+        w = min(SUB, T - s0)
+        e = s0 + w
+        Lss, Xss, pivots = _emulate_sub_block_sweep(A[s0:e, s0:e], w)
+        for p in pivots:
+            pmin = _nan_min(pmin, p)
+        A[s0:e, s0:e] = Lss
+        X[s0:e, s0:e] = Xss
+        if e < T:                                 # 1b: the sub-panel below
+            A[e:, s0:e] = A[e:, s0:e] @ Xss.T
+        if s0 > 0:                                # 1b: X_sj = -X_ss P_sj, j < s
+            X[s0:e, :s0] = -(Xss @ X[s0:e, :s0])
+        if e < T:                                 # 1c: trailing update, pending sums
+            L21 = A[e:, s0:e]
+            A[e:, e:] -= torch.tril(L21 @ L21.T)
+            X[e:, :e] += L21 @ X[s0:e, :e]
+    return torch.tril(A), X, pmin
+
+
+def _emulate_whiten(R, B):
+    """The launch sequence of botorch_whiten on one matrix: (d, W, piv, L, Dinv)."""
+    n, mb = R.shape[0], B.shape[1]
+    T = min(n, 128)
+    ws = torch.cat([R, B.T]).clone()
+    dinv, piv = [], math.inf
+    for kb in range(0, n, T):
+        ke = kb + T
+        Lkk, Xk, p = _emulate_diag_block(ws[kb:ke, kb:ke])
+        piv = _nan_min(piv, p)
+        ws[kb:ke, kb:] = 0.0
+        ws[kb:ke, kb:ke] = Lkk
+        dinv.append(Xk)
+        ws[ke:, kb:ke] = ws[ke:, kb:ke] @ Xk.T    # panel solve, RHS rows included
+        upd = ws[ke:, kb:ke] @ ws[ke:n, kb:ke].T  # trailing update
+        keep = torch.ones_like(upd, dtype=torch.bool)
+        keep[: n - ke] = torch.tril(keep[: n - ke])
+        ws[ke:, ke:n] -= torch.where(keep, upd, torch.zeros_like(upd))
+    L = ws[:n]
+    return L.diagonal(), ws[n:].T, torch.tensor(piv), L, torch.stack(dinv)
+
+
+def _jax_factor_and_solve(R, B):
+    """The JAX package's reference for the same pair: the Pallas kernel in
+    interpret mode where it applies (n % 128 == 0), else its blocked XLA
+    factorisation and forward solve (n <= 128, any n)."""
+    from bayesian_optimization_tpu.ops.linalg import _factor, tri_solve_lower
+
+    if R.shape[0] % 128 == 0:
+        _, W, piv, L, Dinv = whiten_pallas(jnp.asarray(R), jnp.asarray(B), interpret=True)
+    else:
+        L, Dinv, piv = _factor(jnp.asarray(R))
+        W = tri_solve_lower(L, Dinv, jnp.asarray(B))
+    return tuple(np.asarray(t, np.float64) for t in (W, piv, L, Dinv))
+
+
+@pytest.mark.parametrize("n", [16, 37, 64, 100, 128, 256])
+def test_whiten_schedule_matches_twin_and_jax(n):
+    R = _kernel_like(n, n)
+    B = np.random.default_rng(n).standard_normal((n, 3)).astype(np.float32)
+    d, W, piv, L, Dinv = _emulate_whiten(torch.tensor(R), torch.tensor(B))
+    d0, W0, piv0, L0, Dinv0 = whiten_plain(torch.tensor(R), torch.tensor(B))
+    Wj, pivj, Lj, Dinvj = _jax_factor_and_solve(R, B)
+    T = min(n, 128)
+    assert Dinv.shape == Dinv0.shape == Dinvj.shape == (n // T, T, T)
+    for Lr, Wr, pr in ((L0.double().numpy(), W0.double().numpy(), float(piv0)), (Lj, Wj, float(pivj))):
+        assert np.abs(L.numpy() - Lr).max() / np.abs(Lr).max() < 1e-4
+        assert np.abs(W.numpy() - Wr).max() < 1e-3 * max(1.0, np.abs(Wr).max())
+        assert abs(float(piv) - pr) < 1e-3 * abs(pr)
+    assert np.abs(d.numpy() - d0.numpy()).max() < 1e-4
+    assert float(torch.triu(L, 1).abs().max()) == 0.0
+    for k in range(n // T):
+        blk = L[k * T:(k + 1) * T, k * T:(k + 1) * T]
+        assert float((Dinv[k] @ blk - torch.eye(T)).abs().max()) < 1e-3
+        assert float(torch.triu(Dinv[k], 1).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n", [37, 256])
+@pytest.mark.parametrize("fault", ["indefinite", "nan"])
+def test_whiten_schedule_flags_a_failed_factorisation(n, fault):
+    """A -1 pivot reads as not (piv > 0), as in the twin and the JAX
+    package; a NaN in the lower triangle wins the pivot minimum."""
+    R = _kernel_like(n, 1)
+    if fault == "indefinite":
+        R[n // 2, n // 2] = -1.0
+    else:
+        R[n - 2, 3] = R[3, n - 2] = np.nan
+    B = np.ones((n, 1), np.float32)
+    _, _, piv, _, _ = _emulate_whiten(torch.tensor(R), torch.tensor(B))
+    assert not (float(piv) > 0.0)
+    if fault == "nan":
+        assert math.isnan(float(piv))
+    else:
+        _, _, piv0, _, _ = whiten_plain(torch.tensor(R), torch.tensor(B))
+        _, pivj, _, _ = _jax_factor_and_solve(R, B)
+        assert not (float(piv0) > 0.0) and not (float(pivj) > 0.0)
+
+
 def test_cpu_tensors_never_launch():
     reset_launch_counts()
     X = torch.tensor(X_NP)
