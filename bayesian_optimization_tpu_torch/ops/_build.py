@@ -2,11 +2,12 @@
 
 The sources in `bayesian_optimization_tpu_torch/csrc/` are compiled with
 `nvcc` for sm_90a into one shared library with a plain C interface, loaded
-with ctypes. The build runs at first use, into
-`bayesian_optimization_tpu_torch/_build/` (listed in .gitignore), under a
-name keyed by a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one is reused. `nvcc`'s `-Xptxas -v` report (registers,
-shared memory and spills per kernel) is kept beside the library as a .log.
+with ctypes: one `nvcc -c` per source, all started together, then one link.
+The build runs at first use, into `bayesian_optimization_tpu_torch/_build/`
+(listed in .gitignore), under a name keyed by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one is reused. `nvcc`'s
+`-Xptxas -v` report (registers, shared memory and spills per kernel) is kept
+beside the library as a .log.
 """
 from __future__ import annotations
 
@@ -24,18 +25,25 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# C entry point -> argument types; every pointer and the stream are c_void_p
+# C entry point -> (argument types, return type); every pointer and the
+# stream are c_void_p; a launch returns its cudaError_t as an int
 _SIGNATURES = {
     # theta, X, Y, K, B, N, M, D, nu_code, sym, stream
-    "botorch_matern": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "botorch_matern": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
+    # B, N, M, D -> floats of scratch
+    "botorch_matern_bwd_scratch": ((_I, _I, _I, _I), ctypes.c_longlong),
+    # theta, X, Y, G, scratch, dtheta, dX, dY, B, N, M, D, nu_code, sym, same,
+    # need_t, need_x, need_y, stream
+    "botorch_matern_bwd": ((_P,) * 8 + (_I,) * 10 + (_P,), _I),
     # ws, dinv, piv, Bt, rows, n, T, stream
-    "botorch_whiten": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "botorch_whiten": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "botorch_error_string": ((_I,), ctypes.c_char_p),
 }
 
 
@@ -64,22 +72,33 @@ def load_library() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        tag = f"{so.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+        procs = [
+            subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(_sources(), objs)
+        ]
+        outs = [p.communicate()[0] for p in procs]
+        tmp = BUILD_DIR / f"{tag}.tmp"
+        link = None
+        if all(p.returncode == 0 for p in procs):
+            link = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True,
             )
+            outs.append(link.stdout + link.stderr)
+        so.with_suffix(".log").write_text("".join(outs))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if link is None or link.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + "".join(outs))
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
+    for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    lib.botorch_error_string.argtypes = [ctypes.c_int]
-    lib.botorch_error_string.restype = ctypes.c_char_p
+        fn.restype = restype
     return lib
 
 

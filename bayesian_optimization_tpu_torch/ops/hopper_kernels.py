@@ -6,13 +6,16 @@ has three parts here:
 - a wrapper (`matern_fused`, `whiten_fused`) that launches the CUDA kernel
   of csrc/ on a CUDA float32 tensor, and raises on any other CUDA input or a
   failed build or launch. A tensor on the CPU goes to the plain twin; that is
-  the only case the twin runs in place of the kernel. There is no fallback;
-- a plain PyTorch twin (`matern_plain`, `whiten_plain`) of the same function,
-  which defines the semantics. The CPU tests hold it against the JAX
-  package, and `chip_smoke.py` holds the kernel against it on the card;
+  the only case the twin runs in place of the kernel. There is no fallback.
+  `matern_fused`'s backward is a kernel too (`matern_bwd_fused`);
+- a plain PyTorch twin (`matern_plain`, `matern_bwd_plain`, `whiten_plain`)
+  of the same function, which defines the semantics. The CPU tests hold it
+  against the JAX package, and `chip_smoke.py` holds the kernel against it
+  on the card;
 - a launch counter, an int attribute on the wrapper (`matern_fused.launches`,
   `whiten_fused.launches`), raised by one where the kernel is launched and
-  nowhere else.
+  nowhere else; `matern_fused.bwd_launches` counts the backward kernel's
+  calls (two launches each).
 
 The kernels are built at first use (ops/_build.py); nothing is compiled or
 loaded when this module is imported.
@@ -151,56 +154,105 @@ def _launch_matern(theta2, X, Y, code: int, sym: bool) -> torch.Tensor:
     return K
 
 
-class _MaternFn(torch.autograd.Function):
-    """Forward: the CUDA kernel (or the twin for CPU tensors). Backward: torch
-    ops over the saved inputs -- the Pallas kernel had no backward. With
-    A = dL/dK * dK/dr2 (B, N, M), every gradient is a reduction of A that
-    expands into GEMMs (the JAX package's matmul form of the distance):
+def matern_bwd_plain(theta2, X, Y, K, G, code: int, sym: bool, same: bool, needs):
+    """Plain twin of the backward kernel: (g_theta, g_x, g_y) of K =
+    matern(theta2, X, Y) for G = dL/dK (B, N, M), each None unless `needs`
+    (theta, X, Y) asks for it; with `same` (Y is X) g_x carries both sides.
+    Torch ops over the inputs and K, with A = G * dK/dr2 (B, N, M): every
+    gradient is a reduction of A that expands into GEMMs (the JAX package's
+    matmul form of the distance):
         dtheta = rowsum(A) X^2 + colsum(A) Y^2 - 2 sum_i X * (A Y),
         dX     = 2 sum_b theta_b * (rowsum(A_b) X - A_b Y),
         dY     = 2 sum_b theta_b * (colsum(A_b) Y - A_b^T X)."""
+    w = theta2.clamp_min(0.0)
+    # r2 by the GEMM expansion, as the JAX package computes it
+    Xw = X[None] * w[:, None, :]
+    r2 = ((Xw * X[None]).sum(-1)[..., None] + (Y[None] * w[:, None, :] * Y[None]).sum(-1)[:, None, :]
+          - 2.0 * Xw @ Y.T).clamp_min(0.0)
+    A = G * _dk_dr2(r2, K, code)
+    if sym:
+        eye = torch.eye(X.shape[0], Y.shape[0], dtype=torch.bool, device=X.device)
+        A = torch.where(eye, torch.zeros_like(A), A)
+    row, col = A.sum(-1), A.sum(-2)       # (B, N), (B, M)
+    AY = A @ Y                            # (B, N, D)
+    g_theta = g_x = g_y = None
+    if needs[0]:
+        g_theta = row @ (X * X) + col @ (Y * Y) - 2.0 * (X[None] * AY).sum(-2)
+        g_theta = g_theta * (theta2 > 0)
+    need_x = needs[1]
+    need_y = needs[2] or (same and need_x)
+    if need_x:
+        g_x = 2.0 * (w[:, None, :] * (row[..., None] * X[None] - AY)).sum(0)
+    if need_y:
+        AtX = A.mT @ X
+        g_y = 2.0 * (w[:, None, :] * (col[..., None] * Y[None] - AtX)).sum(0)
+    if same:  # Y is X: both sides of the distance move with X
+        g_x = g_x + g_y if need_x else None
+        g_y = None
+    return g_theta, g_x, g_y
+
+
+def matern_bwd_fused(theta2, X, Y, G, code: int, sym: bool, same: bool, needs):
+    """The backward kernel on CUDA tensors: (g_theta, g_x, g_y) as
+    `matern_bwd_plain` defines them (without K), in two launches: per-tile
+    partial sums, then their sum in a fixed order, so repeated calls are
+    bit-identical. Raises on a CPU or non-float32 tensor."""
+    G = G.contiguous()
+    _require_cuda_f32("matern_fused backward", theta=theta2, X=X, Y=Y, G=G)
+    B, D = theta2.shape
+    N, M = X.shape[0], Y.shape[0]
+    if not (theta2.is_contiguous() and X.is_contiguous() and Y.is_contiguous()):
+        raise ValueError("matern_fused backward: theta, X and Y must be contiguous")
+    if G.shape != (B, N, M):
+        raise ValueError(f"matern_fused backward: G is {tuple(G.shape)}, expected {(B, N, M)}")
+    need_t, need_x = bool(needs[0]), bool(needs[1])
+    need_y = bool(needs[2]) or (same and need_x)
+    lib = _build.load_library()
+    scratch = torch.empty(lib.botorch_matern_bwd_scratch(B, N, M, D), dtype=torch.float32,
+                          device=X.device)
+
+    def out(flag, *shape):
+        return torch.empty(shape, dtype=torch.float32, device=X.device) if flag else None
+
+    g_theta, g_x, g_y = out(need_t, B, D), out(need_x, N, D), out(need_y and not same, M, D)
+    err = lib.botorch_matern_bwd(
+        theta2.data_ptr(), X.data_ptr(), Y.data_ptr(), G.data_ptr(), scratch.data_ptr(),
+        *(0 if t is None else t.data_ptr() for t in (g_theta, g_x, g_y)),
+        B, N, M, D, code, int(sym), int(same), int(need_t), int(need_x), int(need_y),
+        _stream_ptr(X),
+    )
+    _build.check(err, "matern_fused backward")
+    matern_fused.bwd_launches += 1
+    return g_theta, g_x, g_y
+
+
+class _MaternFn(torch.autograd.Function):
+    """Forward: the CUDA kernel, backward: the backward kernel; for CPU
+    tensors, the twins of both (the Pallas kernel had no backward)."""
 
     @staticmethod
     def forward(ctx, theta2, X, Y, code, sym, same):
         with torch.no_grad():
             if X.device.type == "cpu":
                 K = _matern_plain_batched(theta2, X, Y, code, sym)
+                ctx.save_for_backward(theta2, X, Y, K)  # the twin reads K (RBF)
             else:
                 K = _launch_matern(theta2, X, Y, code, sym)
-        ctx.save_for_backward(theta2, X, Y, K)
+                ctx.save_for_backward(theta2, X, Y)  # the kernel recomputes r2
         ctx.code, ctx.sym, ctx.same = code, sym, same
         return K
 
     @staticmethod
     def backward(ctx, G):
-        theta2, X, Y, K = ctx.saved_tensors
-        code, sym, same = ctx.code, ctx.sym, ctx.same
-        w = theta2.clamp_min(0.0)
-        # r2 by the GEMM expansion, as the JAX package computes it
-        Xw = X[None] * w[:, None, :]
-        r2 = ((Xw * X[None]).sum(-1)[..., None] + (Y[None] * w[:, None, :] * Y[None]).sum(-1)[:, None, :]
-              - 2.0 * Xw @ Y.T).clamp_min(0.0)
-        A = G * _dk_dr2(r2, K, code)
-        if sym:
-            eye = torch.eye(X.shape[0], Y.shape[0], dtype=torch.bool, device=X.device)
-            A = torch.where(eye, torch.zeros_like(A), A)
-        row, col = A.sum(-1), A.sum(-2)       # (B, N), (B, M)
-        AY = A @ Y                            # (B, N, D)
-        g_theta = g_x = g_y = None
-        if ctx.needs_input_grad[0]:
-            g_theta = row @ (X * X) + col @ (Y * Y) - 2.0 * (X[None] * AY).sum(-2)
-            g_theta = g_theta * (theta2 > 0)
-        need_x = ctx.needs_input_grad[1]
-        need_y = ctx.needs_input_grad[2] or (same and need_x)
-        if need_x:
-            g_x = 2.0 * (w[:, None, :] * (row[..., None] * X[None] - AY)).sum(0)
-        if need_y:
-            AtX = A.mT @ X
-            g_y = 2.0 * (w[:, None, :] * (col[..., None] * Y[None] - AtX)).sum(0)
-        if same:  # Y is X: both sides of the distance move with X
-            g_x = g_x + g_y if need_x else None
-            g_y = None
-        return g_theta, g_x, g_y, None, None, None
+        theta2, X, Y, *K = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        if not any(needs):
+            grads = (None, None, None)
+        elif X.device.type == "cpu":
+            grads = matern_bwd_plain(theta2, X, Y, K[0], G, ctx.code, ctx.sym, ctx.same, needs)
+        else:
+            grads = matern_bwd_fused(theta2, X, Y, G, ctx.code, ctx.sym, ctx.same, needs)
+        return (*grads, None, None, None)
 
 
 def matern_fused(theta, X, Y=None, nu: float = 1.5, sym=None) -> torch.Tensor:
@@ -218,10 +270,11 @@ def matern_fused(theta, X, Y=None, nu: float = 1.5, sym=None) -> torch.Tensor:
         theta2 = theta2.contiguous()
     Yv = X if Y is None else Y
     K = _MaternFn.apply(theta2, X, Yv, _nu_code(nu), bool(sym), Y is None)
-    return K[0] if squeeze else K
+    return K.squeeze(0) if squeeze else K  # a view: its backward launches nothing
 
 
 matern_fused.launches = 0
+matern_fused.bwd_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -339,4 +392,5 @@ whiten_fused.launches = 0
 
 def reset_launch_counts() -> None:
     matern_fused.launches = 0
+    matern_fused.bwd_launches = 0
     whiten_fused.launches = 0

@@ -10,7 +10,10 @@ non-zero, and no phase's exception is caught:
      path's shapes (whiten_fused also at ragged blocks of n <= 128 and at
      the hybrid factorisation's panel shape): max error against the stated
      tolerance, and both times (ms per call by CUDA events around 10 calls,
-     median of 7 windows; ms on the device from the profiler);
+     median of 7 windows; ms on the device from the profiler); matern_fused's
+     forward at every main-path shape with its share of the bound, and its
+     backward kernel against the torch backward it replaces (error against
+     the twin in float64, bit-identical repeats, device ms of both);
      whiten_fused's device time split by kernel name into its diagonal,
      panel and trailing kernels at (2, 1024), (10, 1024) and the hybrid
      panel; a failed lane (indefinite, NaN) flagged by its pivot; then the
@@ -19,15 +22,22 @@ non-zero, and no phase's exception is caught:
   4. the main path at bench size (bench.py: n=1000, d=5): GaussianProcess.fit
      plus the BFGS EI argmax with 25 restarts, 2 warm-ups and 5 timed reps;
      the launch counters are zeroed just before and read just after, and
-     every kernel must have launched; then the likelihood and gradient at
-     this size against the plain path on the CPU;
+     every kernel (the Matern backward included) must have launched; one
+     backward call is one L-BFGS trip, so the counters also give the trips;
+     then the likelihood and gradient at this size against the plain path
+     on the CPU;
   5. one fit at n=4000 (bucket 4096, the hybrid factorisation);
   6. fmin on the 2-D sphere (30 evaluations, seed 42);
 then the kernels' JSON line, the card's name and power limit, and last the
 result line {"ok": true, "device": {...}}.
+
+Bounds: the least time the card could take for a call, the larger of its
+bytes (each input read once, each output written once) over 3.35 TB/s and
+its FP32 operations over 67 TFLOP/s (an H100 SXM's published peaks).
 """
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -42,14 +52,24 @@ from bayesian_optimization_tpu_torch import constant_trend, require_cuda
 from bayesian_optimization_tpu_torch.models.likelihood import PIV_TOL, GPConfig, neg_log_likelihood
 from bayesian_optimization_tpu_torch.ops import _build
 from bayesian_optimization_tpu_torch.ops.hopper_kernels import (
-    matern_fused, matern_plain, reset_launch_counts, whiten_fused, whiten_plain,
+    _nu_code, matern_bwd_fused, matern_bwd_plain, matern_fused, matern_plain,
+    reset_launch_counts, whiten_fused, whiten_plain,
 )
 
 DIM = 5
 MATERN_TOL = 5e-6      # absolute, as tests/test_pallas.py holds matern_pallas
+MATERN_BWD_TOL = 1e-4  # max |g - g_twin| / max |g_twin|, the twin in float64
 WHITEN_L_TOL = 1e-4    # max |L - L_twin| / max |L_twin|
 WHITEN_W_TOL = 1e-3    # max |W - W_twin| / max(1, max |W_twin|)
 PALLAS = "bayesian_optimization_tpu/ops/pallas_kernels.py"
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM
+FP32_FLOP_PER_S = 67e12     # H100 SXM, outside the tensor cores
+
+# (label, lanes B, N, M or None for the training matrix): the shapes the
+# main path gives matern_fused
+MATERN_SHAPES = (("cold ladder rung 1", 10, 256, None), ("cold ladder rung 2", 6, 512, None),
+                 ("warm refit", 2, 1024, None), ("posterior state", 1, 1024, None),
+                 ("argmax trip", 1, 25, 1024), ("headline", 10, 1024, None))
 
 
 def log(msg: str) -> None:
@@ -84,10 +104,10 @@ def time_ms(fn, windows: int = 7, calls: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms_by_kernel(fn, calls: int = 10) -> dict:
-    """Device ms per call of fn(), by kernel name: the summed duration of the
-    kernels of each name the profiler traced over `calls` calls, divided by
-    `calls`."""
+def kernel_profile(fn, calls: int = 10) -> dict:
+    """Per call of fn(), by kernel name: [device ms, launches], the summed
+    duration and count of the kernels of each name the profiler traced over
+    `calls` calls, divided by `calls`."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -97,14 +117,56 @@ def device_ms_by_kernel(fn, calls: int = 10) -> dict:
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+            ms_n = by_name.setdefault(e.name, [0.0, 0.0])
+            ms_n[0] += e.time_range.elapsed_us() / 1e3 / calls
+            ms_n[1] += 1 / calls
     assert by_name, "the profiler traced no kernel"
     return by_name
+
+
+def device_ms_by_kernel(fn, calls: int = 10) -> dict:
+    """Device ms per call of fn(), by kernel name."""
+    return {name: ms for name, (ms, _) in kernel_profile(fn, calls).items()}
 
 
 def device_ms(fn, calls: int = 10) -> float:
     """Device ms per call of fn(): every traced kernel's time, summed."""
     return sum(device_ms_by_kernel(fn, calls).values())
+
+
+def bound(nbytes: float, flops: float):
+    """(bound ms, what sets it) for a call that moves nbytes and does flops."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def matern_bound(B: int, N: int, M, D: int = DIM):
+    """The forward's bound: K written once, theta, X and Y read once; per
+    element 4 D FP32 operations for the distance (sub, mul, fma) and ~8 for
+    the map."""
+    m = N if M is None else M
+    return bound(4 * (B * N * m + B * D + N * D + (0 if M is None else m * D)),
+                 B * N * m * (4 * D + 8))
+
+
+def matern_bwd_bound(B: int, N: int, M, need, D: int = DIM):
+    """The backward's bound: G read once, theta, X, Y read once, the asked
+    gradients written once; per element 4 D + 9 operations for the distance,
+    the map's derivative and A, 4 D for dtheta, 2 D for each of dX, dY."""
+    m = N if M is None else M
+    out = need[0] * B * D + need[1] * N * D + (need[2] and M is not None) * m * D
+    per = 4 * D + 9 + 4 * D * need[0] + 2 * D * (need[1] + need[2])
+    return bound(4 * (B * N * m + B * D + N * D + (0 if M is None else m * D) + out),
+                 B * N * m * per)
+
+
+def whiten_bound(batch: int, n: int, mb: int):
+    """whiten_fused's bound: R and B read, L, W, Dinv and piv written; the
+    Cholesky (n^3/3), the forward solve (n^2 mb) and the 128-block inverses
+    (T^3/3 each), per matrix."""
+    T = min(n, 128)
+    return bound(4 * batch * (n * n + n * mb + n * n + n * mb + n * T + 1),
+                 batch * (n ** 3 / 3 + n * n * mb + (n // T) * T ** 3 / 3))
 
 
 WHITEN_PARTS = (("diagonal", "chol_diag_kernel"), ("panel", "panel_solve_kernel"),
@@ -153,34 +215,116 @@ def kernel_like(batch: int, n: int, seed: int) -> torch.Tensor:
     return R + 1e-2 * torch.eye(n, device="cuda")
 
 
+def matern_inputs(B: int, N: int, M, seed: int = 0):
+    """(theta, X, Y) for a main-path shape: the training matrix of B lanes
+    (theta (B, D), Y None) or the argmax's cross matrix (theta (D,))."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.rand((N, DIM), generator=g, device="cuda")
+    Y = None if M is None else torch.rand((M, DIM), generator=g, device="cuda")
+    theta = 10 ** (torch.rand((B, DIM), generator=g, device="cuda") * 2 - 1)
+    return (theta, X) if M is None else (theta[0].contiguous(), X, Y)
+
+
 def check_matern():
-    g = torch.Generator(device="cuda").manual_seed(0)
-    X = torch.rand((1024, DIM), generator=g, device="cuda")
-    Xq = torch.rand((25, DIM), generator=g, device="cuda")
-    theta_b = 10 ** (torch.rand((10, DIM), generator=g, device="cuda") * 2 - 1)
-    theta_1 = theta_b[0].contiguous()
+    """The forward at every main-path shape and nu against the twin; at
+    nu = 3/2 its times and share of the bound. Returns (worst error, per-call
+    ms, twin per-call ms, bound ms, bound_by) at the headline shape."""
     worst, head = 0.0, None
-    for nu in (0.5, 1.5, 2.5, math.inf):
-        for label, args in (("sym (10, 1024, 1024)", (theta_b, X)),
-                            ("cross (25, 1024)", (theta_1, Xq, X))):
+    for label, B, N, M in MATERN_SHAPES:
+        args = matern_inputs(B, N, M)
+        for nu in (0.5, 1.5, 2.5, math.inf):
             K = matern_fused(*args, nu=nu)
             K0 = matern_plain(*args, nu=nu)
             torch.cuda.synchronize()
             err = float((K - K0).abs().max())
             worst = max(worst, err)
-            t_k = time_ms(lambda: matern_fused(*args, nu=nu))
-            t_p = time_ms(lambda: matern_plain(*args, nu=nu))
-            d_k = device_ms(lambda: matern_fused(*args, nu=nu))
-            d_p = device_ms(lambda: matern_plain(*args, nu=nu))
-            log(f"  matern_fused nu={nu} {label}: max|K-K_twin|={err:.3e} (tol {MATERN_TOL}) "
-                f"kernel {t_k:.4f} ms/call ({d_k:.4f} ms on the device), "
-                f"twin {t_p:.4f} ms/call ({d_p:.4f} ms on the device)")
             assert err < MATERN_TOL, (nu, label, err)
-            if label.startswith("sym"):
+            if M is None:
                 assert float((K.diagonal(dim1=-2, dim2=-1) - 1).abs().max()) == 0.0
-            if nu == 1.5 and label.startswith("sym"):
-                head = (t_k, t_p)
-    return worst, head
+        t_k = time_ms(lambda: matern_fused(*args, nu=1.5))
+        d_k = device_ms(lambda: matern_fused(*args, nu=1.5))
+        d_p = device_ms(lambda: matern_plain(*args, nu=1.5))
+        b_ms, b_by = matern_bound(B, N, M)
+        log(f"  matern_fused {label} ({B}, {N}, {N if M is None else M}): max|K-K_twin| over the "
+            f"four maps {err:.3e} (tol {MATERN_TOL}); nu=1.5: kernel {t_k:.4f} ms/call "
+            f"({d_k:.4f} ms on the device), bound {b_ms:.4f} ms ({b_by}), share of bound "
+            f"{b_ms / d_k:.3f}; twin {d_p:.4f} ms on the device")
+        if label == "headline":
+            for nu in (0.5, 2.5, math.inf):
+                d_nu = device_ms(lambda: matern_fused(*args, nu=nu))
+                log(f"    nu={nu}: kernel {d_nu:.4f} ms on the device")
+            head = (worst, t_k, time_ms(lambda: matern_plain(*args, nu=1.5)), b_ms, b_by)
+    return head
+
+
+# (label, B, N, M or None, gradients asked): the backward's main-path calls
+# (the fit asks for theta alone, the argmax for the query points alone)
+MATERN_BWD_SHAPES = (("warm refit", 2, 1024, None, (True, False, False)),
+                     ("cold ladder rung 1", 10, 256, None, (True, False, False)),
+                     ("cold ladder rung 2", 6, 512, None, (True, False, False)),
+                     ("argmax trip", 1, 25, 1024, (False, True, False)))
+
+
+def check_matern_bwd():
+    """The backward kernel against matern_bwd_plain: the twin in float64 is
+    the yardstick (the float32 twin's GEMM expansion of r2 cancels, worst
+    near r = 0 for nu = 1/2; its error is printed beside);
+    two calls bit-identical; at nu = 3/2 the device ms of the kernel (both
+    launches) and of the torch backward it replaces. G is masked as
+    _masked_correlation masks it. Returns (worst abs error, per-call ms,
+    twin per-call ms, bound ms, bound_by) at the warm refit's shape."""
+    worst, head = 0.0, None
+    for label, B, N, M, need in MATERN_BWD_SHAPES:
+        theta, X, *rest = matern_inputs(B, N, M, seed=1)
+        theta = theta.reshape(-1, DIM)
+        Y = rest[0] if rest else X
+        same = M is None
+        g = torch.Generator(device="cuda").manual_seed(2)
+        G = torch.randn((B, N, Y.shape[0]), generator=g, device="cuda")
+        if same:
+            mask = (torch.arange(N, device="cuda") < N - 24).float()
+            G = G * (torch.outer(mask, mask) * (1 - torch.eye(N, device="cuda")))
+        errs = []
+        for nu in (0.5, 1.5, 2.5, math.inf):
+            code = _nu_code(nu)
+            got = matern_bwd_fused(theta, X, Y, G, code, same, same, need)
+            again = matern_bwd_fused(theta, X, Y, G, code, same, same, need)
+            K64 = matern_plain(theta.double(), X.double(), Y.double(), nu=nu, sym=same)
+            want = matern_bwd_plain(theta.double(), X.double(), Y.double(), K64, G.double(), code,
+                                    same, same, need)
+            K32 = matern_plain(theta, X, Y, nu=nu, sym=same)
+            want32 = matern_bwd_plain(theta, X, Y, K32, G, code, same, same, need)
+            torch.cuda.synchronize()
+            for a, a2, w, w32 in zip(got, again, want, want32):
+                if w is None:
+                    assert a is None
+                    continue
+                assert torch.equal(a, a2), f"backward not bit-identical ({label}, nu={nu})"
+                scale = float(w.abs().max())
+                rel, rel32 = (float((a.double() - w).abs().max()) / scale,
+                              float((w32.double() - w).abs().max()) / scale)
+                worst = max(worst, float((a.double() - w).abs().max()))
+                errs.append(f"nu={nu} {rel:.2e} (float32 twin {rel32:.2e})")
+                assert rel < MATERN_BWD_TOL, (label, nu, rel)
+        code = _nu_code(1.5)
+        K32 = matern_plain(theta, X, Y, nu=1.5, sym=same)
+        t_k = time_ms(lambda: matern_bwd_fused(theta, X, Y, G, code, same, same, need))
+        t_p = time_ms(lambda: matern_bwd_plain(theta, X, Y, K32, G, code, same, same, need))
+        p_k = kernel_profile(lambda: matern_bwd_fused(theta, X, Y, G, code, same, same, need))
+        p_p = kernel_profile(lambda: matern_bwd_plain(theta, X, Y, K32, G, code, same, same, need))
+        (d_k, n_k), (d_p, n_p) = ([sum(v[i] for v in p.values()) for i in (0, 1)]
+                                  for p in (p_k, p_p))
+        b_ms, b_by = matern_bwd_bound(B, N, M, need)
+        asked = "/".join(n for n, f in zip(("theta", "X", "Y"), need) if f)
+        log(f"  matern backward {label} ({B}, {N}, {Y.shape[0]}), d{asked}: rel err against the "
+            f"float64 twin {'; '.join(errs)} (tol {MATERN_BWD_TOL}); bit-identical repeats; "
+            f"nu=1.5: kernel {t_k:.4f} ms/call ({d_k:.4f} ms on the device in {n_k:g} launches: "
+            + ", ".join(f"{name.split('(')[0][-40:]} {v[0]:.4f}" for name, v in p_k.items())
+            + f"), bound {b_ms:.4f} ms ({b_by}), share of bound {b_ms / d_k:.3f}; torch backward "
+            f"{t_p:.4f} ms/call ({d_p:.4f} ms on the device in {n_p:g} launches)")
+        if label == "warm refit":
+            head = (worst, t_k, t_p, b_ms, b_by)
+    return head
 
 
 def log_whiten_split(label: str, split: dict, nb: int) -> None:
@@ -209,16 +353,24 @@ def check_whiten():
         t_p = time_ms(lambda: whiten_plain(R, B))
         d_k = device_ms(lambda: whiten_fused(R, B))
         d_p = device_ms(lambda: whiten_plain(R, B))
+        b_ms, b_by = whiten_bound(batch, n, B.shape[-1])
         log(f"  whiten_fused ({batch}, {n}, {n}): relerr L {errL:.3e} (tol {WHITEN_L_TOL}), "
             f"W {errW:.3e} (tol {WHITEN_W_TOL}), min piv {float(piv.min()):.3e}; "
-            f"kernel {t_k:.4f} ms/call ({d_k:.4f} ms on the device), "
+            f"kernel {t_k:.4f} ms/call ({d_k:.4f} ms on the device), bound {b_ms:.4f} ms "
+            f"({b_by}), share of bound {b_ms / d_k:.3f}; "
             f"twin {t_p:.4f} ms/call ({d_p:.4f} ms on the device)")
         assert errL < WHITEN_L_TOL and errW < WHITEN_W_TOL, (n, errL, errW)
         assert bool((piv > 0).all()) and Dinv.shape == Dinv0.shape
         if n == 1024:
             log_whiten_split(f"({batch}, {n}, {n})", whiten_split(lambda: whiten_fused(R, B)), n // 128)
         if (batch, n) == (2, 1024):
-            head = (t_k, t_p)
+            # no single PyTorch call computes (L, W, Dinv, piv); the Cholesky
+            # alone is a subset of the work, timed as a yardstick only
+            t_c = time_ms(lambda: torch.linalg.cholesky_ex(R))
+            d_c = device_ms(lambda: torch.linalg.cholesky_ex(R))
+            log(f"    torch.linalg.cholesky_ex alone (a subset of the work, not a port call): "
+                f"{t_c:.4f} ms/call ({d_c:.4f} ms on the device)")
+            head = (t_k, t_p, b_ms, b_by)
     # _factor_hybrid's first superpanel at n=4096: S (2, 1024, 1024) against
     # [C^T, y], C the (3072, 1024) subdiagonal panel
     R4 = kernel_like(2, 4096, seed=4)
@@ -327,8 +479,40 @@ def main_path(X, y):
     cold = one_iter()  # cold fit: the full MLE ladder
     one_iter()  # the warm-refit path, first time
     parts = [one_iter() for _ in range(5)]
-    launches = {"matern_fused": matern_fused.launches, "whiten_fused": whiten_fused.launches}
+    launches = {"matern_fused": matern_fused.launches,
+                "matern_fused_bwd": matern_fused.bwd_launches,
+                "whiten_fused": whiten_fused.launches}
     return gp, out, cold, parts, launches
+
+
+def ptxas_summary(log_text: str):
+    """One line per kernel of the build's ptxas report: registers and spill
+    bytes. Of the Matern kernels' instantiations (per feature chunk DC and
+    map) only those of D = 5 are listed, and any that spills."""
+    kernels, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = [0, 0]
+        elif name and "spill stores" in line:
+            kernels[name][1] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif name and "Used" in line:
+            kernels[name][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    out = []
+    for mangled, (regs, spill) in kernels.items():
+        # _ZN <namespace> <name> [I <template args> E] E <parameters>
+        i, parts = mangled.index("_ZN") + 3, []
+        for _ in range(2):
+            n = re.match(r"\d+", mangled[i:]).group()
+            parts.append(mangled[i + len(n):i + len(n) + int(n)])
+            i += len(n) + int(n)
+        short = parts[1]
+        args = re.findall(r"L[ib](\d+)E", mangled[i:].split("EEv")[0]) if mangled[i] == "I" else []
+        if short.startswith("matern") and args and args[0] != str(DIM) and not spill:
+            continue
+        out.append(f"{short}<{','.join(args)}>: {regs} registers, {spill} B spill stores")
+    return len(kernels), out
 
 
 def main() -> None:
@@ -343,14 +527,16 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load_library()
     log(f"[2] kernels built from csrc/ in {time.perf_counter() - t0:.2f} s -> {_build.library_path().name}")
-    for line in _build.build_log().splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    n_kernels, lines = ptxas_summary(_build.build_log())
+    log(f"  ptxas: {n_kernels} kernels")
+    for line in lines:
+        log(f"  ptxas: {line}")
 
     # 3. kernels against their twins
     log("[3] kernels vs plain twins on the card")
-    m_err, (m_ms, m_plain) = check_matern()
-    w_err, (w_ms, w_plain) = check_whiten()
+    m_err, m_ms, m_plain, m_bound, m_by = check_matern()
+    b_err, b_ms, b_plain, b_bound, b_by = check_matern_bwd()
+    w_err, (w_ms, w_plain, w_bound, w_by) = check_whiten()
     log("[3b] the card's path against the plain path on the CPU, on a small input")
     check_reference()
 
@@ -363,6 +549,10 @@ def main() -> None:
         f"fit {[round(f, 4) for f, _ in parts]} s, argmax {[round(a, 4) for _, a in parts]} s; "
         f"cold first iteration: fit {cold[0]:.4f} s, argmax {cold[1]:.4f} s; launches {launches}")
     assert all(v > 0 for v in launches.values()), launches
+    trips = launches["matern_fused_bwd"]  # one Matern backward per L-BFGS trip (fit or argmax)
+    log(f"  L-BFGS trips over the 7 iterations (fit and argmax): {trips}, "
+        f"{trips / 7:.1f} per iteration; matern_fused forward launches per trip "
+        f"{launches['matern_fused'] / trips:.3f}")
     u, val = out["u"], out["val"]
     assert np.all(np.isfinite(u)) and math.isfinite(val) and u.shape == (DIM,)
     state = gp.posterior
@@ -408,15 +598,25 @@ def main() -> None:
         f"{evals} evaluations in {time.perf_counter() - t0:.2f} s")
     assert fopt < doe_best and evals == 30
 
+    # ms, plain_ms and bound_ms: matern_fused at (10, 1024, 1024), its
+    # backward at (2, 1024, 1024) (theta only), whiten_fused at (2, 1024);
+    # no single PyTorch call computes any of the three functions
     kernels = [
         {"name": "matern_fused", "route": "cuda",
          "source": "bayesian_optimization_tpu_torch/csrc/matern.cu",
          "replaces": f"{PALLAS}:98", "launches": launches["matern_fused"],
-         "max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain},
+         "max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain, "bound_ms": m_bound,
+         "bound_by": m_by, "library_ms": None},
+        {"name": "matern_fused_bwd", "route": "cuda",
+         "source": "bayesian_optimization_tpu_torch/csrc/matern.cu",
+         "replaces": f"{PALLAS}:98", "launches": launches["matern_fused_bwd"],
+         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
+         "bound_by": b_by, "library_ms": None},
         {"name": "whiten_fused", "route": "cuda",
          "source": "bayesian_optimization_tpu_torch/csrc/whiten.cu",
          "replaces": f"{PALLAS}:278", "launches": launches["whiten_fused"],
-         "max_abs_err": w_err, "ms": w_ms, "plain_ms": w_plain},
+         "max_abs_err": w_err, "ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound,
+         "bound_by": w_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

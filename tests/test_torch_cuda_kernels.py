@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from bayesian_optimization_tpu_torch.ops.hopper_kernels import (
-    matern_fused, matern_plain, whiten_fused, whiten_plain,
+    _nu_code, matern_bwd_fused, matern_bwd_plain, matern_fused, matern_plain, whiten_fused,
+    whiten_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -56,6 +57,27 @@ def test_matern_kernel_matches_twin(dev, nu, shape):
 
 
 @pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("shape", [(2, 1024, None), (1, 25, 1024)])
+def test_matern_kernel_main_path_shapes(dev, nu, shape):
+    """The fit's training matrix (2 lanes at n = 1024) and the argmax's cross
+    matrix (25 queries, one theta vector) against the twin."""
+    rng = np.random.default_rng(2)
+    B, N, M = shape
+    X = torch.tensor(rng.uniform(0, 1, (N, 5)), dtype=torch.float32, device=dev)
+    Y = None if M is None else torch.tensor(rng.uniform(0, 1, (M, 5)), dtype=torch.float32,
+                                            device=dev)
+    theta = torch.tensor(10 ** rng.uniform(-1, 2, (B, 5)), dtype=torch.float32, device=dev)
+    for th in (theta, theta[0]) if B == 1 else (theta,):
+        K = matern_fused(th, X, Y, nu=nu)
+        K_ref = matern_plain(th, X, Y, nu=nu)
+        torch.cuda.synchronize()
+        assert K.shape == K_ref.shape
+        assert float((K - K_ref).abs().max()) < 5e-6
+        if M is None:
+            assert float((K.diagonal(dim1=-2, dim2=-1) - 1.0).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("nu", NUS)
 def test_matern_kernel_gradients_match_twin(dev, nu):
     rng = np.random.default_rng(1)
     X = torch.tensor(rng.uniform(0, 1, (300, 5)), dtype=torch.float32, device=dev)
@@ -66,10 +88,72 @@ def test_matern_kernel_gradients_match_twin(dev, nu):
     for fn in (matern_fused, matern_plain):
         th = torch.tensor(th0, dtype=torch.float32, device=dev, requires_grad=True)
         Xq = torch.tensor(Xq0, dtype=torch.float32, device=dev, requires_grad=True)
+        before = matern_fused.bwd_launches
         (fn(th, Xq, X, nu=nu) * G).sum().backward()
+        assert matern_fused.bwd_launches == before + (fn is matern_fused)
         grads.append((th.grad, Xq.grad))
     for a, b in zip(*grads):
         assert float((a - b).abs().max() / b.abs().max()) < 1e-4
+
+
+def _bwd_case(case, dev):
+    """(theta (B, D), X, Y or None for the training matrix, G (B, N, M),
+    the gradients asked for) for one case the backward kernel must handle."""
+    r = np.random.default_rng(7)
+    B, N, M = {"lanes3": (3, 40, 60), "masked": (2, 48, None), "gated": (2, 30, 45),
+               "duplicates": (1, 40, None), "ragged": (2, 37, 53), "same": (2, 50, None),
+               "fit": (2, 1024, None), "argmax": (1, 25, 1024)}[case]
+    theta = 10 ** r.uniform(-1, 2, (B, 5))
+    X = r.uniform(0, 1, (N, 5))
+    Y = None if M is None else r.uniform(0, 1, (M, 5))
+    G = r.standard_normal((B, N, N if M is None else M))
+    if case in ("masked", "fit"):  # as _masked_correlation: padded rows/cols and the diagonal
+        mask = (np.arange(N) < N - 9).astype(float)
+        G = G * (np.outer(mask, mask) * (1.0 - np.eye(N)))
+    if case == "gated":
+        theta[0, 1], theta[1, 3] = 0.0, -0.5
+    if case == "duplicates":
+        X[5] = X[3]
+        X[11] = X[3]
+    needs = {"fit": [(True, False, False)], "argmax": [(False, True, False)]}.get(
+        case, [(True, False, False), (False, True, False), (True, True, True)])
+
+    def t(a):
+        return None if a is None else torch.tensor(a, dtype=torch.float32, device=dev)
+
+    return t(theta), t(X), t(Y), t(G), needs
+
+
+@pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("case", ["lanes3", "masked", "gated", "duplicates", "ragged", "same",
+                                  "fit", "argmax"])
+def test_matern_bwd_kernel_matches_twin(dev, case, nu):
+    """The backward kernel against matern_bwd_plain run in float64 on the same
+    inputs (the float32 twin's GEMM expansion of r2 cancels, worst near
+    r = 0 for nu = 1/2), within 1e-4 relative to the largest magnitude;
+    bit-identical from call to call; one count per call."""
+    theta, X, Y, G, needs = _bwd_case(case, dev)
+    same = Y is None
+    Yv = X if same else Y
+    code = _nu_code(nu)
+    K64 = matern_plain(theta.double(), X.double(), Yv.double(), nu=nu, sym=same)
+    for need in needs:
+        before = matern_fused.bwd_launches
+        got = matern_bwd_fused(theta, X, Yv, G, code, same, same, need)
+        again = matern_bwd_fused(theta, X, Yv, G, code, same, same, need)
+        torch.cuda.synchronize()
+        assert matern_fused.bwd_launches == before + 2
+        want = matern_bwd_plain(theta.double(), X.double(), Yv.double(), K64, G.double(), code,
+                                same, same, need)
+        for a, a2, w, asked in zip(got, again, want, (need[0], need[1], need[2] and not same)):
+            assert (a is not None) == asked and (w is not None) == asked
+            if a is None:
+                continue
+            assert torch.equal(a, a2)
+            assert bool(torch.isfinite(a).all())
+            assert float((a.double() - w).abs().max() / w.abs().max()) < 1e-4
+        if need[0]:
+            assert bool((got[0][theta <= 0] == 0).all())
 
 
 def _check_whiten(R, B):

@@ -17,7 +17,8 @@ import torch
 from bayesian_optimization_tpu.models.kernels import matern, squared_exponential
 from bayesian_optimization_tpu.ops.pallas_kernels import matern_pallas, whiten_fused as whiten_pallas
 from bayesian_optimization_tpu_torch.ops.hopper_kernels import (
-    matern_fused, matern_plain, reset_launch_counts, whiten_fused, whiten_plain,
+    _dk_dr2, _nu_code, matern_bwd_plain, matern_fused, matern_plain, reset_launch_counts,
+    whiten_fused, whiten_plain,
 )
 
 torch.set_num_threads(1)  # one thread per pytest worker: more oversubscribe the cores
@@ -77,6 +78,112 @@ def test_matern_gradients_match_jax(nu, fn):
         want = np.asarray(want, np.float64)
         rel = np.abs(got.numpy() - want).max() / np.abs(want).max()
         assert rel < 1e-4, rel
+
+
+def _bwd_case(case):
+    """(theta (B, D), X (N, D), Y (M, D) or None for the training matrix,
+    G (B, N, M)) for one case the backward kernel must handle."""
+    r = np.random.default_rng(7)
+    B, N, M = {"lanes3": (3, 40, 60), "masked": (2, 48, None), "gated": (2, 30, 45),
+               "duplicates": (1, 40, None), "ragged": (2, 37, 53), "same": (2, 50, None)}[case]
+    theta = (10 ** r.uniform(-1, 1, (B, 5))).astype(np.float32)
+    X = r.uniform(0, 1, (N, 5)).astype(np.float32)
+    Y = None if M is None else r.uniform(0, 1, (M, 5)).astype(np.float32)
+    G = r.standard_normal((B, N, N if M is None else M)).astype(np.float32)
+    if case == "masked":  # as _masked_correlation: padded rows/cols and the diagonal
+        mask = (np.arange(N) < N - 9).astype(np.float32)
+        G = G * (np.outer(mask, mask) * (1.0 - np.eye(N, dtype=np.float32)))
+    if case == "gated":  # w = max(theta, 0): no gradient through a zero or negative entry
+        theta[0, 1], theta[1, 3] = 0.0, -0.5
+    if case == "duplicates":  # off-diagonal r2 = 0
+        X[5] = X[3]
+        X[11] = X[3]
+    return theta, X, Y, G
+
+
+@pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("case", ["lanes3", "masked", "gated", "duplicates", "ragged", "same"])
+def test_matern_bwd_plain_matches_jax(case, nu):
+    """The plain backward (matern_bwd_plain, through matern_fused's autograd
+    on the CPU) against jax.grad of the JAX package's kernel, lane by lane,
+    on the cases the backward kernel must handle: theta, X and (cross) Y
+    gradients within 1e-4 relative; gradients of a theta entry <= 0 are
+    exactly 0 (the JAX package's sqrt(max(theta, 0)) gives NaN there)."""
+    theta, X, Y, G = _bwd_case(case)
+    kern = _jax_kernel(nu)
+    jY = None if Y is None else jnp.asarray(Y)
+
+    def jf(th, x, y):
+        return sum(jnp.sum(kern(th[b], x, y) * G[b]) for b in range(G.shape[0]))
+
+    want = jax.grad(jf, argnums=(0, 1) if Y is None else (0, 1, 2))(
+        jnp.asarray(theta), jnp.asarray(X), jY)
+
+    th = torch.tensor(theta, requires_grad=True)
+    x = torch.tensor(X, requires_grad=True)
+    y = None if Y is None else torch.tensor(Y, requires_grad=True)
+    (matern_fused(th, x, y, nu=nu) * torch.tensor(G)).sum().backward()
+    got = (th.grad, x.grad) if Y is None else (th.grad, x.grad, y.grad)
+    live = theta > 0
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w, np.float64)
+        assert np.isfinite(g).all()
+        if g.shape == theta.shape:
+            assert (g[~live] == 0.0).all()
+            g, w = g[live], w[live]
+        assert np.abs(g - w).max() / np.abs(w).max() < 1e-4
+
+
+def _emulate_matern_bwd(theta, X, Y, G, code, sym, tile_m=32, tile_n=128):
+    """The backward kernel's schedule (csrc/matern.cu) in torch: per (lane,
+    row tile, column tile) block, A from the direct-form r2 and the tile's
+    partial sums (dtheta per feature, dX per row, dY per column), then
+    matern_bwd_finalize's sums over blocks, weights and gate."""
+    B, D = theta.shape
+    N, M = X.shape[0], Y.shape[0]
+    w = theta.clamp_min(0.0)
+    n_it, n_jt = -(-N // tile_m), -(-M // tile_n)
+    Pt = torch.zeros(B, n_it, n_jt, D, dtype=X.dtype)
+    Px = torch.zeros(B, n_jt, N, D, dtype=X.dtype)
+    Py = torch.zeros(B, n_it, M, D, dtype=X.dtype)
+    for b in range(B):
+        for it in range(n_it):
+            for jt in range(n_jt):
+                i = torch.arange(it * tile_m, min(N, (it + 1) * tile_m))
+                j = torch.arange(jt * tile_n, min(M, (jt + 1) * tile_n))
+                d = X[i, None, :] - Y[None, j, :]
+                r2 = (w[b] * d * d).sum(-1)
+                A = G[b][i[:, None], j[None, :]] * _dk_dr2(r2, torch.exp(-r2), code)
+                if sym:
+                    A = torch.where(i[:, None] == j[None, :], torch.zeros_like(A), A)
+                Pt[b, it, jt] = (A[..., None] * d * d).sum((0, 1))
+                Px[b, jt, i] = (A[..., None] * d).sum(1)
+                Py[b, it, j] = (A[..., None] * d).sum(0)
+    g_theta = Pt.sum((1, 2)) * (theta > 0)
+    g_x = 2.0 * (w[:, None, :] * Px.sum(1)).sum(0)
+    g_y = -2.0 * (w[:, None, :] * Py.sum(1)).sum(0)
+    return g_theta, g_x, g_y
+
+
+@pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("case", ["lanes3", "masked", "gated", "duplicates", "ragged", "same"])
+def test_matern_bwd_schedule_matches_twin(case, nu):
+    """The backward kernel's decomposition (tile partials, then their sums)
+    against the plain backward, both in float64, on the kernel's cases."""
+    theta, X, Y, G = (None if a is None else torch.tensor(a, dtype=torch.float64)
+                      for a in _bwd_case(case))
+    same = Y is None
+    Yv = X if same else Y
+    code = _nu_code(nu)
+    K = matern_plain(theta, X, Yv, nu=nu, sym=same)
+    g_t, g_x, g_y = _emulate_matern_bwd(theta, X, Yv, G, code, same)
+    if same:  # Y is X: both sides of the distance move with X
+        g_x, g_y = g_x + g_y, None
+    want = matern_bwd_plain(theta, X, Yv, K, G, code, same, same, (True, True, not same))
+    for got, w in zip((g_t, g_x, g_y), want):
+        assert (got is None) == (w is None)
+        if w is not None:
+            assert float((got - w).abs().max() / w.abs().max()) < 1e-9
 
 
 def _kernel_like(n, seed, jitter=1e-2):
@@ -272,7 +379,9 @@ def test_whiten_schedule_flags_a_failed_factorisation(n, fault):
 def test_cpu_tensors_never_launch():
     reset_launch_counts()
     X = torch.tensor(X_NP)
-    matern_fused(torch.tensor(THETA_NP), X)
+    th = torch.tensor(THETA_NP, requires_grad=True)
+    matern_fused(th, X).sum().backward()
     whiten_fused(torch.tensor(_kernel_like(64, 2)), torch.ones(64, 1))
     assert matern_fused.launches == 0
+    assert matern_fused.bwd_launches == 0
     assert whiten_fused.launches == 0
