@@ -1,8 +1,11 @@
 """PyTorch/CUDA port of bayesian_optimization_tpu for one NVIDIA H100.
 
-The same public names as the JAX package, for the slice ported so far:
-`fmin`/`BO` on a `RealSpace`, the `GaussianProcess` (Matern or RBF kernel,
-batched L-BFGS MLE) and the BFGS `AcquisitionArgmax`. Each kernel the JAX
+The same public names as the JAX package, for the slices ported so far:
+`fmin` (n_point >= 1), `BO` and the batch flavors `ParallelBO`,
+`AnnealingBO`, `SelfAdaptiveBO`, `NoisyBO`, `MultiAcquisitionBO` on real and
+mixed spaces, the `GaussianProcess` (Matern or RBF kernel, batched L-BFGS
+or population-CMA MLE) and the `AcquisitionArgmax` with its BFGS, CMA, SMC
+and MIES engines. Each kernel the JAX
 package wrote in Pallas for the TPU is a CUDA kernel written by hand for
 Hopper (csrc/), built at first use. Public constructors take `device=`
 (default "cuda") and raise when no suitable GPU is present; tests pass
@@ -21,7 +24,10 @@ from .utils import (
     AskEmptyError, ConstraintEvaluationError, FlatFitnessError,
     ObjectiveEvaluationError, RecommendationUnavailableError,
 )
-from .core import BO, BaseBO, BaseOptimizer, Solution
+from .core import (
+    BO, AnnealingBO, BaseBO, BaseOptimizer, MultiAcquisitionBO, NoisyBO, ParallelBO,
+    SelfAdaptiveBO, Solution,
+)
 from .models import GaussianProcess, trend
 from .models.trend import constant_trend
 from .ops.acquisition import EI, MGFI, PI, UCB, EpsilonPI
@@ -33,7 +39,8 @@ __all__ = [
     "Variable", "Real", "Integer", "Ordinal", "Discrete", "Bool", "Subset",
     "SearchSpace", "RealSpace", "IntegerSpace", "OrdinalSpace", "DiscreteSpace",
     "BoolSpace", "SubsetSpace", "Node", "SpaceEncoding",
-    "Solution", "BaseOptimizer", "BaseBO", "BO",
+    "Solution", "BaseOptimizer", "BaseBO",
+    "BO", "ParallelBO", "AnnealingBO", "SelfAdaptiveBO", "NoisyBO", "MultiAcquisitionBO",
     "GaussianProcess", "AcquisitionArgmax", "trend", "constant_trend",
     "EI", "PI", "EpsilonPI", "UCB", "MGFI",
     "AskEmptyError", "FlatFitnessError", "RecommendationUnavailableError",

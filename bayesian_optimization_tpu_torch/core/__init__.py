@@ -1,6 +1,9 @@
-"""BO engine core: data model, ask/evaluate/tell loop, sequential BO."""
+"""BO engine core: data model, ask/evaluate/tell loop, BO flavors."""
 from .solution import Solution
 from .base import BaseBO, BaseOptimizer
-from .bo import BO
+from .bo import BO, AnnealingBO, MultiAcquisitionBO, NoisyBO, ParallelBO, SelfAdaptiveBO
 
-__all__ = ["Solution", "BaseOptimizer", "BaseBO", "BO"]
+__all__ = [
+    "Solution", "BaseOptimizer", "BaseBO",
+    "BO", "ParallelBO", "AnnealingBO", "SelfAdaptiveBO", "NoisyBO", "MultiAcquisitionBO",
+]

@@ -14,7 +14,9 @@ Capability parity with the reference's two base classes:
 
 PyTorch port of bayesian_optimization_tpu/core/base.py. The GP and the
 acquisition argmax are the port's (models/gp.py, optim/argmax.py), both on
-the device named by `device=` (default "cuda"). Not ported yet (they raise):
+the device named by `device=` (default "cuda"); a mixed space runs the MIES
+engine. Batch proposals are `ParallelBO`'s (core/bo.py): `BaseBO` raises
+for n_point > 1, as the JAX package does. Not ported yet (they raise):
 constraints (eq_fun/ineq_fun), particle meshes, a NonparametricTrend prior
 and non-GP surrogates.
 """
@@ -306,6 +308,7 @@ class BaseBO(BaseOptimizer):
             self.encoding,
             method=method,
             n_restart=opts.get("n_restart"),
+            max_FEs=opts.get("max_FEs"),
             seed=(self.random_seed or 0) + 17,
             device=self.device,
         )
@@ -524,7 +527,7 @@ class BaseBO(BaseOptimizer):
         )
 
     def _batch_arg_max_acquisition(self, n_point: int, fixed_units):
-        raise NotImplementedError("batch proposals (ParallelBO) are not ported to the GPU package yet")
+        raise NotImplementedError("use ParallelBO for batch proposals")
 
     # --------------------------------------------------------- persistence
     def save(self, filename: str):

@@ -1,9 +1,9 @@
 """scipy-style functional entry point.
 
 Counterpart of bayesian_optimization_tpu/fmin.py: builds a RealSpace and a
-Matern GP with theta bounds scaled to the box widths, runs sequential BO,
-and returns (xopt, fopt, n_iterations, n_evaluations, per-iteration trial
-points). n_point > 1 (ParallelBO) is not ported yet.
+Matern GP with theta bounds scaled to the box widths, picks BO vs
+ParallelBO by n_point, and returns (xopt, fopt, n_iterations,
+n_evaluations, per-iteration trial points: the DoE, then chunks of n_point).
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from typing import Callable, List, Optional, Tuple, Union
 import numpy as np
 
 from ._device import DEFAULT_DEVICE
-from .core.bo import BO
+from .core.bo import BO, ParallelBO
 from .models.gp import GaussianProcess
 from .models.trend import constant_trend
 from .space import RealSpace
@@ -33,8 +33,6 @@ def fmin(
     **kwargs,
 ):
     """Minimize `func` over the box [lower, upper] with Bayesian optimization."""
-    if n_point != 1:
-        raise NotImplementedError("fmin with n_point > 1 (ParallelBO) is not ported yet")
     obj_func = (lambda x: func(np.asarray(x, dtype=float), *args)) if args else (
         lambda x: func(np.asarray(x, dtype=float))
     )
@@ -76,7 +74,8 @@ def fmin(
             y0 = [obj_func(x) for x in x0]
         warm_data = (x0, y0)
 
-    opt = BO(
+    cls = BO if n_point == 1 else ParallelBO
+    opt = cls(
         search_space=search_space,
         obj_fun=obj_func,
         model=model,
@@ -92,10 +91,14 @@ def fmin(
     )
     opt.run()
 
-    N = opt._DoE_size
+    N, n = opt._DoE_size, opt.n_point
     data = opt.data
     data_per_iteration = [np.asarray(data.values[:N], dtype=float)]
-    data_per_iteration += [np.asarray(data.values[i:i + 1], dtype=float) for i in range(N, len(data))]
+    rest = data.values[N:]
+    data_per_iteration += [
+        np.asarray(rest[i * n : (i + 1) * n], dtype=float)
+        for i in range(max(0, (len(rest) + n - 1) // n))
+    ]
     if verbose:
         print(
             "Optimization terminated successfully.\n"

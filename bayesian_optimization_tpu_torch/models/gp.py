@@ -1,16 +1,18 @@
 """Gaussian-process surrogate (Kriging) with batched MLE on the GPU.
 
-Counterpart of bayesian_optimization_tpu/models/gp.py, BFGS path: the
-multi-restart MLE runs as one batched L-BFGS (ops/optimize.py) on the
+Counterpart of bayesian_optimization_tpu/models/gp.py. optimizer="BFGS":
+the multi-restart MLE runs as one batched L-BFGS (ops/optimize.py) on the
 successive-halving ladder -- all restarts on a data subset, the best few on
 larger subsets, the final two on all rows -- with the restarts ranked and
-culled on the device between rungs. Observations are padded to the same
-size buckets as the JAX package. Restart starts come from numpy's
-`default_rng(random_state)`, drawn in the same order as the JAX package, so
-both packages start from identical points.
+culled on the device between rungs. optimizer="CMA": the restarts are
+chains of the population (1+1)-Cholesky-CMA (optim/cma.py) over the log10
+hyperparameters on all rows, one batched likelihood per generation.
+Observations are padded to the same size buckets as the JAX package.
+Restart starts come from numpy's `default_rng(random_state)`, drawn in the
+same order as the JAX package, so both packages start from identical points.
 
-The other optimizers (CMA, HMC, NUTS, VI), `precompile` and the float64
-option are not ported yet and raise.
+HMC, NUTS and VI, and `precompile`, are not ported and raise; the float64
+option runs on the CPU only.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from .._device import DEFAULT_DEVICE, resolve_device
 from ..ops.optimize import minimize_restarts
+from ..optim.cma import run_cma
 from .likelihood import (
     PIV_TOL,
     GPConfig,
@@ -125,7 +128,7 @@ class GaussianProcess:
                 f"unknown optimizer {optimizer!r}; expected one of "
                 "'BFGS', 'CMA', 'HMC', 'NUTS', 'VI'"
             )
-        if optimizer != "BFGS":
+        if optimizer not in ("BFGS", "CMA"):
             raise NotImplementedError(f"optimizer {optimizer!r} is not ported to the GPU package yet")
         self.mean = mean
         self.corr_type = corr if isinstance(corr, str) else "custom"
@@ -262,6 +265,25 @@ class GaussianProcess:
         state = posterior_state(res.x_best, X, Y, F, mask, n_s, noise_var, beta0, config)
         return res.x_best, res.fun_best, state
 
+    def _fit_cma(self, starts, lo_b, hi_b, data_dev, noise_var, beta0, config):
+        """MLE by population CMA chains from the starts, 4 * max_iter
+        generations on all rows. The chains' generator is seeded by the
+        integer the JAX package draws from self._rng for its PRNG key, so
+        every later draw from self._rng stays in step with it."""
+        seed = int(self._rng.integers(0, 2**31 - 1))
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        X, Y, F, mask, n_s = data_dev
+
+        def nll(p):
+            return neg_log_likelihood(p, X, Y, F, mask, n_s, noise_var, beta0, config,
+                                      prior_lo=lo_b, prior_hi=hi_b)
+
+        with torch.no_grad():
+            par, fun, _, _ = run_cma(gen, nll, self._tensor(starts), lo_b, hi_b,
+                                     4 * self.max_iter)
+        state = posterior_state(par, X, Y, F, mask, n_s, noise_var, beta0, config)
+        return par, fun, state
+
     def _probe(self, starts, lo_b, hi_b, data_dev, noise_var, beta0, config):
         """Batched likelihood at the starts on all rows: tells whether every
         start sits in the 1e12 penalty region, so fit() can escalate the
@@ -343,22 +365,26 @@ class GaussianProcess:
         for attempt in range(6):
             lo_b = self._tensor(bounds[:, 0])
             hi_b = self._tensor(bounds[:, 1])
-            # all-dead probe: only on the big buckets, in already-noisy modes,
-            # and never on the last attempt (see the JAX package's fit)
-            if attempt < 5 and n_pad > 1024 and self.estimation_mode != "noiseless":
-                probe = self._probe(starts, lo_b, hi_b, data_dev, noise_var, beta0, config)
-                if bool((probe >= 1e11).all()):
-                    noise_var, config, bounds, starts = self._escalate_nugget(
-                        dim, y, noise_var, config, bounds, starts, R
-                    )
-                    continue
-            wr = warm_ok and attempt == 0  # escalation regenerates starts
-            par, nll, state = self._run_mle_ladder(
-                starts, lo_b, hi_b, (Xp, Yp), data_dev, n, n_pad, noise_var,
-                beta0, config, warm_refit=wr,
-            )
-            if not wr:
-                self._full_ladder_n = n
+            if self.optimizer == "CMA":
+                par, nll, state = self._fit_cma(starts, lo_b, hi_b, data_dev, noise_var,
+                                                beta0, config)
+            else:
+                # all-dead probe: only on the big buckets, in already-noisy
+                # modes, and never on the last attempt (see the JAX package's fit)
+                if attempt < 5 and n_pad > 1024 and self.estimation_mode != "noiseless":
+                    probe = self._probe(starts, lo_b, hi_b, data_dev, noise_var, beta0, config)
+                    if bool((probe >= 1e11).all()):
+                        noise_var, config, bounds, starts = self._escalate_nugget(
+                            dim, y, noise_var, config, bounds, starts, R
+                        )
+                        continue
+                wr = warm_ok and attempt == 0  # escalation regenerates starts
+                par, nll, state = self._run_mle_ladder(
+                    starts, lo_b, hi_b, (Xp, Yp), data_dev, n, n_pad, noise_var,
+                    beta0, config, warm_refit=wr,
+                )
+                if not wr:
+                    self._full_ladder_n = n
             ok_h, theta_h, nll_h, s2_h, beta_h = _fit_summary(par, nll, state)
             if ok_h:
                 break

@@ -4,7 +4,10 @@ Counterpart of bayesian_optimization_tpu/ops/acquisition.py: EI, PI,
 epsilon-PI, UCB and MGFI (t <= 22.36) for minimization with an improvement
 plugin, each a function of batched posterior moments (mu[N], sd[N]) ->
 value[N], maximized by the argmax engines. sd ~ 0 and non-finite values
-give 0, as in the JAX package. GEI is not ported yet.
+give 0, as in the JAX package. Each parameter (plugin, t, alpha, epsilon)
+is a number or a per-lane tensor (N,): a batch of q criteria runs as one
+population whose lanes carry their own criterion's parameters. GEI is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -28,6 +31,13 @@ def _pdf(u):
     return torch.exp(-0.5 * u * u) * _INV_SQRT2PI
 
 
+def _lane(v, like: torch.Tensor):
+    """A parameter as a tensor on like's device and dtype: a number becomes a
+    0-d tensor, a per-lane vector stays (N,); one already there is not
+    copied."""
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
 def _guard(value: torch.Tensor, sd: torch.Tensor) -> torch.Tensor:
     value = torch.where(torch.isfinite(value), value, torch.zeros_like(value))
     return torch.where(sd > _SD_FLOOR, value, torch.zeros_like(value))
@@ -36,7 +46,7 @@ def _guard(value: torch.Tensor, sd: torch.Tensor) -> torch.Tensor:
 def ei(mu, sd, plugin, **_):
     """Expected improvement below `plugin`."""
     sd_safe = sd.clamp_min(_SD_FLOOR)
-    imp = plugin - mu
+    imp = _lane(plugin, mu) - mu
     u = imp / sd_safe
     return _guard(imp * _cdf(u) + sd_safe * _pdf(u), sd)
 
@@ -44,8 +54,9 @@ def ei(mu, sd, plugin, **_):
 def pi(mu, sd, plugin, epsilon: float = 0.0, **_):
     """(epsilon-)probability of improvement."""
     sd_safe = sd.clamp_min(_SD_FLOOR)
+    epsilon = _lane(epsilon, mu)
     coef = torch.where(mu > 0, 1.0 - epsilon, 1.0 + epsilon)
-    return _guard(_cdf((plugin - coef * mu) / sd_safe), sd)
+    return _guard(_cdf((_lane(plugin, mu) - coef * mu) / sd_safe), sd)
 
 
 def epsilon_pi(mu, sd, plugin, epsilon: float = 1e-10, **_):
@@ -54,12 +65,13 @@ def epsilon_pi(mu, sd, plugin, epsilon: float = 1e-10, **_):
 
 def ucb(mu, sd, alpha: float = 0.5, **_):
     """Lower-confidence bound for minimization, maximized as -mu + alpha sd."""
-    return -mu + alpha * sd
+    return -mu + _lane(alpha, mu) * sd
 
 
 def mgfi(mu, sd, plugin, t: float = 1.0, **_):
     """Moment-generating function of the improvement [Wang et al., SMC'17]."""
-    t = torch.as_tensor(t, dtype=mu.dtype, device=mu.device).clamp(1e-12, MGFI_T_MAX)
+    t = _lane(t, mu).clamp(1e-12, MGFI_T_MAX)
+    plugin = _lane(plugin, mu)
     sd_safe = sd.clamp_min(_SD_FLOOR)
     mu_p = mu - t * sd_safe ** 2
     beta_p = (plugin - mu_p) / sd_safe

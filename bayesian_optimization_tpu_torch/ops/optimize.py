@@ -40,10 +40,10 @@ class MinimizeResult(NamedTuple):
     fun_best: torch.Tensor # () best value
 
 
-def _value_and_grad(zfun, z: torch.Tensor):
+def _value_and_grad(zfun, z: torch.Tensor, idx: torch.Tensor):
     with torch.enable_grad():
         zz = z.detach().requires_grad_(True)
-        f = zfun(zz)
+        f = zfun(zz, idx)
         (g,) = torch.autograd.grad(f.sum(), zz)
     return f.detach(), g
 
@@ -115,7 +115,7 @@ def _lbfgs_batched(zfun, z0, max_iter: int, memory_size: int, max_linesearch_ste
         z_trial = (z + t[:, None] * p).clamp(-_Z_CLIP, _Z_CLIP)
         f_t = torch.full((R,), float("inf"), dtype=dt, device=dev)
         g_t = torch.zeros((R, d), dtype=dt, device=dev)
-        f_a, g_a = _value_and_grad(zfun, z_trial[idx])
+        f_a, g_a = _value_and_grad(zfun, z_trial[idx], idx)
         f_t[idx] = f_a
         g_t[idx] = torch.where(torch.isfinite(g_a), g_a, torch.zeros_like(g_a))
 
@@ -170,15 +170,20 @@ def minimize_restarts(
     max_iter: int = 60,
     memory_size: int = 10,
     max_linesearch_steps: int = 20,
+    lane_index: bool = False,
 ) -> MinimizeResult:
     """Minimize `fun` from each row of x0 (R, d) inside [lo, hi], all
     restarts in parallel. `fun` maps a batch (R', d) -> (R',) and must be
-    differentiable by autograd; lanes must not interact."""
+    differentiable by autograd; lanes must not interact. A trip evaluates
+    only the live lanes, so an objective whose parameters differ per lane
+    (the q criteria of a batch, flattened into one run) asks for
+    lane_index=True and is called as fun(X, idx), idx (R',) the lanes' rows
+    of x0."""
     lo = torch.as_tensor(lo, dtype=x0.dtype, device=x0.device)
     hi = torch.as_tensor(hi, dtype=x0.dtype, device=x0.device)
 
-    def zfun(z):
-        return fun(to_box(z, lo, hi))
+    def zfun(z, idx):
+        return fun(to_box(z, lo, hi), idx) if lane_index else fun(to_box(z, lo, hi))
 
     zs, vals = _lbfgs_batched(zfun, from_box(x0, lo, hi), max_iter, memory_size,
                               max_linesearch_steps)
@@ -190,5 +195,5 @@ def minimize_restarts(
 
 def maximize_restarts(fun, x0, lo, hi, **kw) -> MinimizeResult:
     """Maximization convenience wrapper (negates fun and the results)."""
-    res = minimize_restarts(lambda x: -fun(x), x0, lo, hi, **kw)
+    res = minimize_restarts(lambda *a: -fun(*a), x0, lo, hi, **kw)
     return MinimizeResult(x=res.x, fun=-res.fun, x_best=res.x_best, fun_best=-res.fun_best)

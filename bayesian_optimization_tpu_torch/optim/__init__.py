@@ -1,4 +1,7 @@
-"""Acquisition argmax: batched multi-start L-BFGS."""
+"""Acquisition argmax engines: batched L-BFGS multistart, population
+(1+1)-Cholesky-CMA-ES, SMC-resampled CMA chains, mixed-space evolution (MIES)."""
 from .argmax import AcquisitionArgmax, make_unit_criterion
+from .cma import OnePlusOne_Cholesky_CMA, run_cma
+from .mies import MIES
 
-__all__ = ["AcquisitionArgmax", "make_unit_criterion"]
+__all__ = ["AcquisitionArgmax", "make_unit_criterion", "OnePlusOne_Cholesky_CMA", "run_cma"]

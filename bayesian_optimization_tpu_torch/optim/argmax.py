@@ -1,20 +1,33 @@
-"""Acquisition argmax by batched multi-start L-BFGS.
+"""Acquisition argmax over a search space's unit cube.
 
-Counterpart of bayesian_optimization_tpu/optim/argmax.py for
-method="BFGS" (and "auto" on all-real spaces): restarts are lanes of one
-batched L-BFGS (ops/optimize.py), and every trip evaluates the criterion
-for all live lanes at once -- one point per lane, one shared posterior, so
-one (P, n_pad) cross-covariance through the hand Matern kernel per trip.
+Counterpart of bayesian_optimization_tpu/optim/argmax.py, with its four
+engines: batched multi-start L-BFGS ('BFGS', and 'auto' on an all-real
+space), the population (1+1)-Cholesky-CMA-ES ('OnePlusOne_Cholesky_CMA'),
+CMA chains with systematic resampling ('SMC'), and the mixed-integer ES
+('MIES', and 'auto' on a mixed space). Restarts and chains are lanes of one
+population: every L-BFGS trip or ES generation evaluates the criterion for
+all of them at once -- one shared posterior, so one (P, n_pad)
+cross-covariance through the hand Matern kernel.
 
-The restart pool is drawn from a torch.Generator seeded from `seed` (on the
-CPU, so a seed gives the same pool on every device); `x0_seed` overwrites
-its head, which is how the parity tests hand both packages the same starts.
-Not ported yet (they raise): the CMA, MIES and SMC engines, `.batch`,
-constraints, PCA, a random-forest prior, EHVI and qEHVI.
+`batch` maximizes q criteria (one acquisition, q parameter sets) as ONE
+population of q x P lanes, where the JAX package vmaps one program per
+criterion: each lane carries its own criterion's parameters (per-lane
+tensors, ops/acquisition.py), and the engines keep every lane (BFGS) or
+every criterion's population (SMC) apart, so flattening changes nothing a
+lane computes. The derivative-free engines evaluate the criterion under
+`torch.no_grad()`: a generation needs no gradient, and a graph kept alive
+would hold every generation's saved tensors.
+
+The restart and chain pools are drawn from a torch.Generator seeded from
+`seed` (on the CPU, so a seed gives the same pool on every device);
+`x0_seed` overwrites each pool's head, which is how the parity tests hand
+both packages the same starts. The chains' own draws come from a generator
+on the device, seeded from the same stream. Not ported yet (they raise):
+constraints, meshes, PCA, a random-forest prior, EHVI and qEHVI.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,18 +36,22 @@ from .._device import DEFAULT_DEVICE, resolve_device
 from ..models.likelihood import GPConfig, PosteriorState, predict, trend_basis
 from ..ops.acquisition import acquisition_fn
 from ..ops.optimize import maximize_restarts
+from .cma import best_per_group, run_cma
+from .mies import MIESSpec, run_mies
+from .smc import run_smc
 
 
 def _inject_seeds(x0: torch.Tensor, x0_seed) -> torch.Tensor:
-    """Overwrite the head of a (P, dim) restart pool with caller-supplied
-    unit-cube rows; the rest of the pool stays random."""
+    """Overwrite the head of a restart/chain pool (last two dims (P, dim),
+    optionally with a leading q axis) with caller-supplied unit-cube rows;
+    the rest of the pool stays random."""
     if x0_seed is None:
         return x0
     seeds = torch.as_tensor(np.atleast_2d(np.asarray(x0_seed, float)), dtype=x0.dtype,
                             device=x0.device)
-    s = min(seeds.shape[0], x0.shape[0])
+    s = min(seeds.shape[0], x0.shape[-2])
     x0 = x0.clone()
-    x0[:s] = seeds[:s]
+    x0[..., :s, :] = seeds[:s]
     return x0
 
 
@@ -48,11 +65,13 @@ def make_unit_criterion(
     fixed_mask: Optional[torch.Tensor] = None,
     fixed_vals: Optional[torch.Tensor] = None,
 ) -> Callable:
-    """crit(U[P, dim]) -> value[P]: unit cube -> embed -> GP posterior ->
-    acquisition. Larger is better."""
+    """crit(U[P, dim], idx=None) -> value[P]: unit cube -> embed -> GP
+    posterior -> acquisition. Larger is better. A parameter may be a
+    per-lane tensor (L,); `idx` (P,) then names the lanes of U's rows
+    (L-BFGS evaluates only the live lanes), and without it U has all L."""
     fn = acquisition_fn(acq_name)
 
-    def crit(U: torch.Tensor) -> torch.Tensor:
+    def crit(U: torch.Tensor, idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         if fixed_mask is not None:
             U = torch.where(fixed_mask[None, :] > 0, fixed_vals[None, :], U)
         E = encoding.unit_to_embed(U)
@@ -60,35 +79,68 @@ def make_unit_criterion(
         mu0, sd0 = mu[:, 0], torch.sqrt(var[:, 0].clamp_min(0.0))
         if not minimize:
             mu0 = -mu0
-        return fn(mu0, sd0, **acq_params)
+        params = acq_params
+        if idx is not None:
+            params = {k: v[idx] if torch.is_tensor(v) and v.ndim else v for k, v in params.items()}
+        return fn(mu0, sd0, **params)
 
     return crit
 
 
-def _bfgs_argmax(state, config, encoding, acq_name, acq_params, minimize,
-                 x0, fixed_mask, fixed_vals, max_iter):
-    crit = make_unit_criterion(
-        encoding, state, config, acq_name, acq_params, minimize, fixed_mask, fixed_vals
-    )
+def _bfgs_argmax(crit, x0, q: int, max_iter: int):
+    """q criteria x R restarts (x0 (q * R, d)) as one batched L-BFGS;
+    returns each criterion's winner and value, (q, d) and (q,)."""
     dim = x0.shape[-1]
     zeros = torch.zeros(dim, dtype=x0.dtype, device=x0.device)
-    res = maximize_restarts(crit, x0, zeros, zeros + 1.0, max_iter=max_iter)
-    u, val = res.x_best, res.fun_best
-    if fixed_mask is not None:
-        u = torch.where(fixed_mask > 0, fixed_vals, u)
-    return u, val
+    res = maximize_restarts(crit, x0, zeros, zeros + 1.0, max_iter=max_iter, lane_index=True)
+    # non-finite lanes are +inf in the minimization, so -inf here
+    return best_per_group(res.x, res.fun, q, largest=True)
+
+
+@torch.no_grad()
+def _cma_argmax(gen, crit, x0, q: int, n_generations: int):
+    dim = x0.shape[-1]
+    zeros = torch.zeros(dim, dtype=x0.dtype, device=x0.device)
+    _, _, xs, fs = run_cma(gen, lambda U: -crit(U), x0, zeros, zeros + 1.0, n_generations)
+    xb, fb = best_per_group(xs, fs, q, largest=False)
+    return xb, -fb
+
+
+@torch.no_grad()
+def _smc_argmax(gen, crit, x0, q: int, n_rounds: int, n_moves: int):
+    dim = x0.shape[-1]
+    zeros = torch.zeros(dim, dtype=x0.dtype, device=x0.device)
+    xb, fb, _, _ = run_smc(gen, lambda U: -crit(U), x0, zeros, zeros + 1.0, n_rounds, n_moves,
+                           groups=q)
+    return xb.reshape(q, dim), -fb.reshape(q)
+
+
+@torch.no_grad()
+def _mies_argmax(gen, crit, spec, n_restarts: int, n_generations: int, dtype, device):
+    xb, fb, _, _ = run_mies(gen, lambda U: -crit(U), spec, n_restarts=n_restarts,
+                            n_generations=n_generations, dtype=dtype, device=device)
+    return xb[None], -fb[None]
 
 
 class AcquisitionArgmax:
-    """Maximizes acquisition criteria over a `SpaceEncoding`'s unit cube
-    with batched multi-start L-BFGS (method 'BFGS', or 'auto' on an
-    all-real space)."""
+    """Maximizes acquisition criteria over a `SpaceEncoding`'s unit cube.
+
+    method: 'BFGS' (gradient multi-start; continuous spaces),
+            'OnePlusOne_Cholesky_CMA' (population ES; any space),
+            'MIES' (mixed-integer ES, optim/mies.py),
+            'SMC' (CMA chains with annealed systematic resampling between
+            move blocks, optim/smc.py),
+            'auto' -- BFGS for all-real spaces, MIES otherwise.
+    Any other name runs the CMA engine, as in the JAX package.
+    """
 
     def __init__(
         self,
         encoding,
         method: str = "auto",
         n_restart: Optional[int] = None,
+        max_FEs: Optional[int] = None,
+        n_chains: Optional[int] = None,
         seed: int = 0,
         mesh=None,
         constraints=None,
@@ -97,20 +149,77 @@ class AcquisitionArgmax:
         self.device = resolve_device(device)
         if mesh is not None or constraints is not None:
             raise NotImplementedError("meshes and constraints are not ported to the GPU package yet")
-        all_real = bool(np.all(encoding.is_real))
-        if method == "auto" and all_real:
-            method = "BFGS"
-        if method != "BFGS":
-            raise NotImplementedError(
-                f"argmax method {method!r} (all_real={all_real}) is not ported to the "
-                "GPU package yet; only BFGS on all-real spaces"
-            )
         self.encoding = encoding
-        self.method = method
         dim = encoding.dim
+        if method == "auto":
+            method = "BFGS" if bool(np.all(encoding.is_real)) else "MIES"
+        self.method = method
         self.n_restart = n_restart or 5 * dim
+        # ES budget ~1000*dim evals split over chains x generations
+        self.n_chains = n_chains or max(32, 4 * dim)
+        budget = max_FEs or (1000 * dim if method != "BFGS" else 100 * dim)
+        self.max_FEs = budget
+        self.n_generations = max(16, int(budget // self.n_chains))
         self.max_iter = 40
+        # SMC: the same chain budget split into resampling rounds x move blocks
+        self.n_smc_rounds = 6
+        self.n_smc_moves = max(4, self.n_generations // (self.n_smc_rounds + 1))
+        self._spec = MIESSpec.from_encoding(encoding)
+        # MIES: n_restart runs of a (4, 10)-ES; lambda evals a generation
+        self.n_mies_restarts = max(4, (n_restart or 5 * dim) // 4)
+        self.n_mies_generations = max(16, int(budget // (10 * self.n_mies_restarts)))
         self._gen = torch.Generator().manual_seed(int(seed))
+
+    def _fixed(self, fixed):
+        if not fixed:
+            return None, None
+        dim = self.encoding.dim
+        fm, fv = np.zeros(dim), np.zeros(dim)
+        for j, u in fixed.items():
+            fm[j], fv[j] = 1.0, u
+        return (torch.as_tensor(fm, dtype=self.encoding.dtype, device=self.device),
+                torch.as_tensor(fv, dtype=self.encoding.dtype, device=self.device))
+
+    def _pool(self, q: int, P: int, x0_seed) -> torch.Tensor:
+        """(q * P, dim) starts from the CPU generator, seeds at each head."""
+        x0 = torch.rand((q, P, self.encoding.dim), generator=self._gen, dtype=self.encoding.dtype)
+        return _inject_seeds(x0, x0_seed).reshape(q * P, -1).to(self.device)
+
+    def _chain_gen(self) -> torch.Generator:
+        seed = int(torch.randint(0, 2**62, (1,), generator=self._gen))
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _run(self, state, config, acq_name, params: Dict, q: int, minimize, fixed, x0_seed,
+             batch: bool):
+        """Every engine on q criteria whose parameters are per-lane tensors
+        (numbers outside a batch); returns (u (q, dim) on the host, values (q,))."""
+        fixed_mask, fixed_vals = self._fixed(fixed)
+        crit = make_unit_criterion(self.encoding, state, config, acq_name, params, minimize,
+                                   fixed_mask, fixed_vals)
+        if self.method == "BFGS":
+            us, vals = _bfgs_argmax(crit, self._pool(q, self.n_restart, x0_seed), q, self.max_iter)
+        elif self.method == "SMC":
+            us, vals = _smc_argmax(self._chain_gen(), crit, self._pool(q, self.n_chains, x0_seed),
+                                   q, self.n_smc_rounds, self.n_smc_moves)
+        elif self.method == "MIES" and not batch:
+            us, vals = _mies_argmax(self._chain_gen(), crit, self._spec, self.n_mies_restarts,
+                                    self.n_mies_generations, self.encoding.dtype, self.device)
+        else:  # the CMA engine; a batch under MIES runs it too, as in the JAX package
+            us, vals = _cma_argmax(self._chain_gen(), crit, self._pool(q, self.n_chains, x0_seed),
+                                   q, self.n_generations)
+        if fixed_mask is not None:
+            us = torch.where(fixed_mask > 0, fixed_vals, us)
+        us = self.encoding.quantize_unit(us).clamp(0.0, 1.0)
+        return us.detach().cpu().numpy(), vals.detach().cpu().double().numpy()
+
+    def _lane_params(self, acq_params: Dict, reps: int = 1) -> Dict:
+        """Parameters as tensors on the device; a list of q values becomes a
+        per-lane vector, each value repeated for its criterion's `reps` lanes."""
+        def one(v):
+            t = torch.as_tensor(np.asarray(v, dtype=np.float64), dtype=self.encoding.dtype)
+            return (t.repeat_interleave(reps) if t.ndim else t).to(self.device)
+
+        return {k: one(v) for k, v in acq_params.items()}
 
     def __call__(
         self,
@@ -124,24 +233,30 @@ class AcquisitionArgmax:
     ) -> Tuple[np.ndarray, float]:
         """Returns (u_best[dim] on the unit cube, criterion value).
         x0_seed: optional (s, dim) unit-cube rows injected at the head of
-        the restart pool."""
-        dim = self.encoding.dim
-        dtype = self.encoding.dtype
-        fixed_mask = fixed_vals = None
-        if fixed:
-            fm, fv = np.zeros(dim), np.zeros(dim)
-            for j, u in fixed.items():
-                fm[j], fv[j] = 1.0, u
-            fixed_mask = torch.as_tensor(fm, dtype=dtype, device=self.device)
-            fixed_vals = torch.as_tensor(fv, dtype=dtype, device=self.device)
-        x0 = torch.rand((self.n_restart, dim), generator=self._gen, dtype=dtype)
-        x0 = _inject_seeds(x0.to(self.device), x0_seed)
-        u, val = _bfgs_argmax(
-            state, config, self.encoding, acq_name, dict(acq_params), minimize,
-            x0, fixed_mask, fixed_vals, self.max_iter,
-        )
-        u = self.encoding.quantize_unit(u).clamp(0.0, 1.0).cpu().numpy()
-        return u, float(val)
+        the restart/chain pool (MIES draws its own population)."""
+        us, vals = self._run(state, config, acq_name, self._lane_params(acq_params), 1,
+                             minimize, fixed, x0_seed, batch=False)
+        return us[0], float(vals[0])
 
-    def batch(self, *_args, **_kwargs):
-        raise NotImplementedError("AcquisitionArgmax.batch is not ported to the GPU package yet")
+    def batch(
+        self,
+        state: PosteriorState,
+        config: GPConfig,
+        acq_name: str,
+        acq_params_list: List[Dict],
+        minimize: bool = True,
+        fixed: Optional[Dict[int, float]] = None,
+        x0_seed: Optional[np.ndarray] = None,
+    ):
+        """q criteria (same acquisition, different parameters) maximized as
+        one population. Returns (list of q unit vectors, list of q values).
+        x0_seed rows are injected at the head of EVERY criterion's pool."""
+        q = len(acq_params_list)
+        keys = set(acq_params_list[0])
+        if any(set(p) != keys for p in acq_params_list):
+            raise ValueError("all parameter dicts must share the same keys")
+        P = {"BFGS": self.n_restart}.get(self.method, self.n_chains)
+        params = self._lane_params({k: [p[k] for p in acq_params_list] for k in keys}, reps=P)
+        us, vals = self._run(state, config, acq_name, params, q, minimize, fixed, x0_seed,
+                             batch=True)
+        return [us[i] for i in range(q)], [float(v) for v in vals]

@@ -93,5 +93,9 @@ def test_cuda_default_raises_without_a_gpu():
         TGP(thetaL=[1e-3], thetaU=[1e3])
     with pytest.raises(RuntimeError):
         tbo.fmin(sphere, [-1.0], [1.0], max_FEs=3)
+    with pytest.raises(RuntimeError):
+        tbo.fmin(sphere, [-1.0], [1.0], n_point=2, max_FEs=3)
+    with pytest.raises(RuntimeError):
+        tbo.ParallelBO(search_space=tbo.RealSpace([[-1.0, 1.0]]), obj_fun=sphere, n_point=2)
     # the float64 option runs the plain path, so it exists on the CPU only
     assert TGP(thetaL=[1e-3], thetaU=[1e3], device="cpu", dtype="f64").dtype == torch.float64

@@ -244,3 +244,101 @@ def test_float64_gp_option_raises_on_the_card(dev):
 
     with pytest.raises(NotImplementedError):
         GaussianProcess(thetaL=[1e-3], thetaU=[1e3], device=dev, dtype="f64")
+
+
+# (N queries, M training rows, D): the batch and engine paths' cross
+# matrices -- 8 criteria x 25 restarts of the batched L-BFGS, a CMA/SMC
+# generation of 32 chains, a MIES generation on parity config 4's mixed
+# space (6 embedded features)
+ENGINE_SHAPES = [(200, 1024, 5), (32, 1024, 5), (60, 1024, 6)]
+
+
+@pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("shape", ENGINE_SHAPES)
+def test_matern_kernel_engine_shapes(dev, nu, shape):
+    """Forward against the twin (5e-6) and the dX backward against the twin
+    in float64 (1e-4 relative), one theta vector as the argmax gives it."""
+    N, M, D = shape
+    r = np.random.default_rng(N + D)
+    theta = torch.tensor(10 ** r.uniform(-1, 2, (1, D)), dtype=torch.float32, device=dev)
+    X = torch.tensor(r.uniform(0, 1, (N, D)), dtype=torch.float32, device=dev)
+    Y = torch.tensor(r.uniform(0, 1, (M, D)), dtype=torch.float32, device=dev)
+    K = matern_fused(theta[0], X, Y, nu=nu)
+    assert float((K - matern_plain(theta[0], X, Y, nu=nu)).abs().max()) < 5e-6
+    G = torch.tensor(r.standard_normal((1, N, M)), dtype=torch.float32, device=dev)
+    code = _nu_code(nu)
+    _, g_x, _ = matern_bwd_fused(theta, X, Y, G, code, False, False, (False, True, False))
+    K64 = matern_plain(theta.double(), X.double(), Y.double(), nu=nu)
+    _, w_x, _ = matern_bwd_plain(theta.double(), X.double(), Y.double(), K64, G.double(), code,
+                                 False, False, (False, True, False))
+    torch.cuda.synchronize()
+    assert float((g_x.double() - w_x).abs().max() / w_x.abs().max()) < 1e-4
+
+
+# (lanes B, n, D): the training matrices the new paths fit -- the parity
+# configs' small buckets (10 starts at 16 and 64 rows, D = 5 and the mixed
+# space's D = 6), the mixed space's ladder at n = 1000 (its own compile-time
+# D = 6 variant of the symmetric kernel), and 10 lanes at 1024 rows, D = 6
+FIT_SHAPES = [(10, 16, 5), (10, 64, 5), (10, 16, 6), (10, 64, 6), (10, 256, 6), (6, 512, 6),
+              (2, 1024, 6), (10, 1024, 6)]
+
+
+@pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("shape", FIT_SHAPES)
+def test_matern_kernel_fit_shapes(dev, nu, shape):
+    """The training matrix against the twin (5e-6, the exact unit diagonal)
+    and the dtheta backward against the twin in float64 (1e-4 relative),
+    G masked as _masked_correlation masks it."""
+    B, N, D = shape
+    r = np.random.default_rng(B + N + D)
+    theta = torch.tensor(10 ** r.uniform(-1, 2, (B, D)), dtype=torch.float32, device=dev)
+    X = torch.tensor(r.uniform(0, 1, (N, D)), dtype=torch.float32, device=dev)
+    K = matern_fused(theta, X, nu=nu)
+    torch.cuda.synchronize()
+    assert float((K - matern_plain(theta, X, nu=nu)).abs().max()) < 5e-6
+    assert float((K.diagonal(dim1=-2, dim2=-1) - 1.0).abs().max()) == 0.0
+    mask = (np.arange(N) < N - N // 4).astype(float)
+    G = torch.tensor(r.standard_normal((B, N, N)) * (np.outer(mask, mask) * (1.0 - np.eye(N))),
+                     dtype=torch.float32, device=dev)
+    code = _nu_code(nu)
+    g_t, _, _ = matern_bwd_fused(theta, X, X, G, code, True, True, (True, False, False))
+    K64 = matern_plain(theta.double(), X.double(), X.double(), nu=nu, sym=True)
+    w_t, _, _ = matern_bwd_plain(theta.double(), X.double(), X.double(), K64, G.double(), code,
+                                 True, True, (True, False, False))
+    torch.cuda.synchronize()
+    assert float((g_t.double() - w_t).abs().max() / w_t.abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("method", ["BFGS", "OnePlusOne_Cholesky_CMA", "SMC"])
+def test_batch_argmax_launches_the_kernels(dev, method):
+    """AcquisitionArgmax.batch on the card: 3 MGFI criteria as one
+    population; the Matern forward launches on every engine, its backward
+    on the batched L-BFGS; each value is the CPU criterion's at its winner."""
+    from bayesian_optimization_tpu_torch import AcquisitionArgmax, GaussianProcess, RealSpace
+    from bayesian_optimization_tpu_torch.models.trend import constant_trend
+
+    r = np.random.default_rng(0)
+    X = r.uniform(0, 1, (60, 5))
+    y = ((X - 0.35) ** 2).sum(1)
+    y = (y - y.mean()) / y.std()
+    gp = GaussianProcess(mean=constant_trend(5), thetaL=1e-3 * np.ones(5), thetaU=1e3 * np.ones(5),
+                         nugget=1e-6, random_state=0, device=dev)
+    gp.fit(X, y)
+    enc = RealSpace([[0.0, 1.0]] * 5).encoding()
+    pars = [{"plugin": float(y.min()), "t": t} for t in (0.5, 1.0, 2.0)]
+    fwd, bwd = matern_fused.launches, matern_fused.bwd_launches
+    us, vals = AcquisitionArgmax(enc, method=method, n_restart=8, seed=0, device=dev).batch(
+        gp.posterior, gp.config, "MGFI", pars)
+    assert matern_fused.launches > fwd
+    assert (matern_fused.bwd_launches > bwd) == (method == "BFGS")
+    cpu = GaussianProcess(thetaL=1e-3 * np.ones(5), thetaU=1e3 * np.ones(5), device="cpu")
+    cpu.load_fitted(gp.theta_, {k: v.cpu().numpy() for k, v in gp.posterior._asdict().items()},
+                    gp.config._asdict())
+    from bayesian_optimization_tpu_torch.optim.argmax import make_unit_criterion
+
+    for u, v, p in zip(us, vals, pars):
+        crit = make_unit_criterion(enc, cpu.posterior, cpu.config, "MGFI",
+                                   {k: torch.tensor(x) for k, x in p.items()})
+        with torch.no_grad():
+            want = float(crit(torch.tensor(u[None], dtype=torch.float32))[0])
+        assert abs(v - want) <= 1e-4 * abs(want), (v, want)
