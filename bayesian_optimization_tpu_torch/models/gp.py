@@ -7,12 +7,17 @@ larger subsets, the final two on all rows -- with the restarts ranked and
 culled on the device between rungs. optimizer="CMA": the restarts are
 chains of the population (1+1)-Cholesky-CMA (optim/cma.py) over the log10
 hyperparameters on all rows, one batched likelihood per generation.
-Observations are padded to the same size buckets as the JAX package.
-Restart starts come from numpy's `default_rng(random_state)`, drawn in the
-same order as the JAX package, so both packages start from identical points.
+optimizer="HMC" | "NUTS" | "VI": a posterior over the hyperparameters
+(models/hmc.py), its chains or Monte-Carlo draws lanes of one batched
+likelihood and gradient; the fit keeps `n_ensemble` samples as one stacked
+posterior state, and predict mixes them. Observations are padded to the
+same size buckets as the JAX package. Restart starts, the samplers' seeds
+and the data subsets come from numpy's `default_rng(random_state)`, drawn in
+the same order as the JAX package, so both packages start from identical
+points.
 
-HMC, NUTS and VI, and `precompile`, are not ported and raise; the float64
-option runs on the CPU only.
+`precompile` (TPU compile warming) has no counterpart; the float64 option
+runs on the CPU only.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 from .._device import DEFAULT_DEVICE, resolve_device
 from ..ops.optimize import minimize_restarts
 from ..optim.cma import run_cma
+from .hmc import Draws, _to_box, fit_vi, hmc_sample, nuts_sample
 from .likelihood import (
     PIV_TOL,
     GPConfig,
@@ -32,7 +38,7 @@ from .likelihood import (
     n_hyper_params,
     neg_log_likelihood,
     posterior_state,
-    predict as _predict_point,
+    predict_gp,
 )
 from .trend import TRENDS, BasisExpansionTrend, constant_trend
 
@@ -68,7 +74,8 @@ def _bucket(n: int) -> int:
 def _fit_summary(par, nll, state: PosteriorState):
     """(ok, theta, nll, sigma2, beta) on the host, in one transfer. ok folds
     the degenerate-likelihood check: finite nll below the penalty, finite
-    gamma, and raw pivots above PIV_TOL at the chosen hyperparameters."""
+    gamma, and raw pivots above PIV_TOL at the chosen hyperparameters (of
+    every member of a stacked state)."""
     ok = (
         torch.isfinite(nll)
         & (nll < 1e11)
@@ -82,8 +89,13 @@ def _fit_summary(par, nll, state: PosteriorState):
     P, m = par.numel(), state.sigma2.numel()
     return (
         bool(flat[0]), flat[1:1 + P], float(flat[1 + P]),
-        flat[2 + P:2 + P + m], flat[2 + P + m:].reshape(state.beta.shape),
+        flat[2 + P:2 + P + m].reshape(state.sigma2.shape), flat[2 + P + m:].reshape(state.beta.shape),
     )
+
+
+def _negated(nll):
+    """The samplers' target, the log likelihood, from a negative log likelihood."""
+    return lambda p: -nll(p)
 
 
 class GaussianProcess:
@@ -128,8 +140,6 @@ class GaussianProcess:
                 f"unknown optimizer {optimizer!r}; expected one of "
                 "'BFGS', 'CMA', 'HMC', 'NUTS', 'VI'"
             )
-        if optimizer not in ("BFGS", "CMA"):
-            raise NotImplementedError(f"optimizer {optimizer!r} is not ported to the GPU package yet")
         self.mean = mean
         self.corr_type = corr if isinstance(corr, str) else "custom"
         self._corr = corr
@@ -223,15 +233,30 @@ class GaussianProcess:
             noise_var = max(noise_var, 1e-8) * 10.0
         return noise_var, config, bounds, starts
 
+    def _subset_stage(self, Xp, Yp, idx):
+        """The likelihood's data (X, Y, F, mask, n) on the rows idx."""
+        Xs, Ys = self._tensor(Xp[idx]), self._tensor(Yp[idx])
+        ones = torch.ones(len(idx), dtype=self.dtype, device=self.device)
+        return Xs, Ys, self._trend_F(Xs), ones, float(len(idx))
+
+    def _data_subset_stage(self, Xp, Yp, n, n_pad):
+        """The likelihood's data on a random ~n/4 subset (a 128-multiple):
+        the sampler's phase-1 warm-up target."""
+        ns = min(n_pad // 4, max(128, (n // 128) * 128))
+        return self._subset_stage(Xp, Yp, self._rng.choice(n, size=ns, replace=False))
+
     def _run_mle_ladder(self, starts, lo_b, hi_b, data_host, data_dev, n, n_pad,
-                        noise_var, beta0, config, warm_refit: bool = False):
+                        noise_var, beta0, config, iters_scale: float = 1.0,
+                        warm_refit: bool = False):
         """Successive-halving MLE ladder as a Python loop over rungs; the
-        restarts are ranked on the device between rungs. warm_refit (a
-        BO-loop refit with < 25% new data since the last full ladder) skips
-        the exploration rungs: the previous optimum and the median-heuristic
-        start polish on all rows at the full iteration budget."""
+        restarts are ranked on the device between rungs. iters_scale < 1
+        runs a shortened ladder (to seed the sampler's chains at the MAP).
+        warm_refit (a BO-loop refit with < 25% new data since the last full
+        ladder) skips the exploration rungs: the previous optimum and the
+        median-heuristic start polish on all rows at the full iteration
+        budget."""
         Xp, Yp = data_host
-        max_iter = max(4, int(self.max_iter))
+        max_iter = max(4, int(self.max_iter * iters_scale))
         if warm_refit:
             rungs, (n_final, iters_b) = [], (min(2, len(starts)), max_iter)
         else:
@@ -239,25 +264,16 @@ class GaussianProcess:
                 n, n_pad, len(starts), max_iter, self.multi_fidelity
             )
         idxs = [self._rng.choice(n, size=ns, replace=False) for ns, _, _ in rungs]
-        stages = []
-        for idx, (ns, n_in, iters) in zip(idxs, rungs):
-            Xs, Ys = self._tensor(Xp[idx]), self._tensor(Yp[idx])
-            ones = torch.ones(ns, dtype=self.dtype, device=self.device)
-            stages.append(((Xs, Ys, self._trend_F(Xs), ones, float(ns)), n_in, iters))
+        stages = [(self._subset_stage(Xp, Yp, idx), n_in, iters)
+                  for idx, (_, n_in, iters) in zip(idxs, rungs)]
         stages.append((data_dev, n_final, iters_b))
 
         xs = self._tensor(starts)
         res = None
-        for i, ((X, Y, F, mask, n_s), n_in, iters) in enumerate(stages):
-            def nll(p, X=X, Y=Y, F=F, mask=mask, n_s=n_s):
-                return neg_log_likelihood(
-                    p, X, Y, F, mask, n_s, noise_var, beta0, config,
-                    prior_lo=lo_b, prior_hi=hi_b,
-                )
-
+        for i, (stage, n_in, iters) in enumerate(stages):
             res = minimize_restarts(
-                nll, xs[:n_in], lo_b, hi_b, max_iter=iters,
-                max_linesearch_steps=self.max_linesearch_steps,
+                self._nll(stage, lo_b, hi_b, noise_var, beta0, config), xs[:n_in], lo_b, hi_b,
+                max_iter=iters, max_linesearch_steps=self.max_linesearch_steps,
             )
             if i + 1 < len(stages):
                 xs = res.x[torch.argsort(res.fun, stable=True)]
@@ -272,28 +288,121 @@ class GaussianProcess:
         every later draw from self._rng stays in step with it."""
         seed = int(self._rng.integers(0, 2**31 - 1))
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        with torch.no_grad():
+            par, fun, _, _ = run_cma(gen, self._nll(data_dev, lo_b, hi_b, noise_var, beta0, config),
+                                     self._tensor(starts), lo_b, hi_b, 4 * self.max_iter)
         X, Y, F, mask, n_s = data_dev
+        state = posterior_state(par, X, Y, F, mask, n_s, noise_var, beta0, config)
+        return par, fun, state
+
+    @staticmethod
+    def _nll(data, lo_b, hi_b, noise_var, beta0, config):
+        """log10 parameters (B, P) -> the negative log likelihood, with the
+        MAP prior, on data (X, Y, F, mask, n): (B,)."""
+        X, Y, F, mask, n_s = data
 
         def nll(p):
             return neg_log_likelihood(p, X, Y, F, mask, n_s, noise_var, beta0, config,
                                       prior_lo=lo_b, prior_hi=hi_b)
 
+        return nll
+
+    @staticmethod
+    def _ensemble_posterior(pars, nll, data_dev, noise_var, beta0, config):
+        """(mean nll, stacked states) of an (S, P) hyperparameter ensemble:
+        the shared tail of the HMC/NUTS and VI fits."""
+        X, Y, F, mask, n_s = data_dev
         with torch.no_grad():
-            par, fun, _, _ = run_cma(gen, nll, self._tensor(starts), lo_b, hi_b,
-                                     4 * self.max_iter)
-        state = posterior_state(par, X, Y, F, mask, n_s, noise_var, beta0, config)
-        return par, fun, state
+            mean_nll = nll(pars).mean()
+        states = posterior_state(pars, X, Y, F, mask, n_s, noise_var, beta0,
+                                 config._replace(n_ensemble=0))
+        return mean_nll, states
+
+    def _fit_hmc(self, seed, chain0, lo_b, hi_b, data_dev, noise_var, beta0, config, n_ensemble,
+                 n_warmup, warm_stage=None, carry=None, n_warmup2=None):
+        """A posterior over the hyperparameters by adaptive HMC or NUTS, the
+        chains the rows of chain0: (samples (S, P), nll, stacked states,
+        accept rate, inv_mass, step size, draws (n_samples, C, P)). thin=2,
+        ceil(S / C) draws a chain, 12 leapfrogs (HMC) or depth 6 (NUTS), as
+        the JAX package. warm_stage: the data of a row subset, the phase-1
+        target; carry: (inv_mass, step size) of the previous refit, which
+        skips phase 1. Draws from a generator on the device seeded with
+        `seed`."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        nll = self._nll(data_dev, lo_b, hi_b, noise_var, beta0, config)
+        warm_nll = None if warm_stage is None else self._nll(warm_stage, lo_b, hi_b, noise_var,
+                                                             beta0, config)
+        x0 = self._tensor(chain0)
+        C, P = x0.shape
+        kw = dict(n_warmup=n_warmup, n_samples=max(1, -(-n_ensemble // C)), thin=2,
+                  warmup_log_prob_fn=None if warm_nll is None else _negated(warm_nll),
+                  n_warmup2=n_warmup2, draws=Draws(gen))
+        if carry is not None:
+            kw.update(init_inv_mass=self._tensor(carry[0]), init_step_size=self._tensor(carry[1]))
+        if self.optimizer == "NUTS":
+            res = nuts_sample(gen, _negated(nll), x0, lo_b, hi_b, max_depth=6, **kw)
+        else:
+            res = hmc_sample(gen, _negated(nll), x0, lo_b, hi_b, n_leapfrog=12, **kw)
+        pars = res.samples.reshape(-1, P)[:n_ensemble]
+        mean_nll, states = self._ensemble_posterior(pars, nll, data_dev, noise_var, beta0, config)
+        return pars, mean_nll, states, res.accept_rate, res.inv_mass, res.step_size, res.samples
+
+    def _fit_vi(self, seed, lo_b, hi_b, data_dev, noise_var, beta0, config, n_ensemble, n_steps):
+        """A posterior over the hyperparameters by mean-field ADVI; its
+        n_ensemble samples, mapped to box coordinates, stacked into the same
+        ensemble state as the samplers'. Returns (samples, nll, states,
+        (mean, log_std))."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        draws = Draws(gen)
+        nll = self._nll(data_dev, lo_b, hi_b, noise_var, beta0, config)
+        mean, log_std = fit_vi(gen, _negated(nll), lo_b, hi_b, n_steps=n_steps, draws=draws)
+        eps = draws.normal((n_ensemble, lo_b.shape[0]), self.dtype)
+        pars = _to_box(mean[None, :] + torch.exp(log_std)[None, :] * eps, lo_b, hi_b)
+        mean_nll, states = self._ensemble_posterior(pars, nll, data_dev, noise_var, beta0, config)
+        return pars, mean_nll, states, (mean, log_std)
 
     def _probe(self, starts, lo_b, hi_b, data_dev, noise_var, beta0, config):
         """Batched likelihood at the starts on all rows: tells whether every
         start sits in the 1e12 penalty region, so fit() can escalate the
         nugget without running the ladder on a zero-gradient plateau."""
-        X, Y, F, mask, n_s = data_dev
         with torch.no_grad():
-            return neg_log_likelihood(
-                self._tensor(starts), X, Y, F, mask, n_s, noise_var, beta0, config,
-                prior_lo=lo_b, prior_hi=hi_b,
+            return self._nll(data_dev, lo_b, hi_b, noise_var, beta0, config)(self._tensor(starts))
+
+    def _sampler_setup(self, starts, bounds, R, data_host, data_dev, n, n_pad, lo_b, hi_b,
+                       noise_var, beta0, config):
+        """(chain0, warm stage, carry, n_warmup2) of an HMC/NUTS fit, with the
+        JAX package's draws from self._rng in its order: C = max(4, min(R,
+        8)) chains; at n >= 512 jittered by 0.1 of the bounds' width around
+        the previous fit's log10 MAP (or a half-length MLE ladder's optimum
+        when there is none), and phase 1 on an n/4 row subset; below 512 the
+        first C starts. The previous refit's (inv_mass, step) is carried when
+        it has the same chains, sampler and size bucket."""
+        Xp, Yp = data_host
+        C = max(4, min(R, 8))
+        n_par = bounds.shape[0]
+        n_warm = int(getattr(self, "hmc_warmup", 64))
+        if n >= 512:
+            map_par = getattr(self, "_map_par_log10", None)
+            if map_par is None or len(map_par) != n_par:
+                map_t, _, _ = self._run_mle_ladder(
+                    starts, lo_b, hi_b, data_host, data_dev, n, n_pad, noise_var, beta0,
+                    config, iters_scale=0.5)
+                map_par = map_t.cpu().double().numpy()
+            width = bounds[:, 1] - bounds[:, 0]
+            chain0 = np.clip(
+                map_par[None, :] + 0.1 * width[None, :] * self._rng.standard_normal((C, n_par)),
+                bounds[:, 0], bounds[:, 1],
             )
+            warm_stage = self._data_subset_stage(Xp, Yp, n, n_pad)
+        else:
+            chain0, warm_stage = starts[:C], None
+        carry = getattr(self, "_sampler_carry", None)
+        if carry is not None and (
+            carry[0].shape != (len(chain0), n_par) or carry[2] != (self.optimizer, n_pad)
+        ):
+            carry = None
+        n_w2 = max(8, n_warm // 4) if carry is not None or warm_stage is not None else None
+        return chain0, warm_stage, carry, n_w2
 
     def fit(self, X, y) -> "GaussianProcess":
         X = np.asarray(X, dtype=float)
@@ -365,7 +474,31 @@ class GaussianProcess:
         for attempt in range(6):
             lo_b = self._tensor(bounds[:, 0])
             hi_b = self._tensor(bounds[:, 1])
-            if self.optimizer == "CMA":
+            if self.optimizer in ("HMC", "NUTS", "VI"):
+                S = int(getattr(self, "n_ensemble", 16))
+                seed = int(self._rng.integers(0, 2**31 - 1))
+                if self.optimizer == "VI":
+                    par_s, nll, state, vi_params = self._fit_vi(
+                        seed, lo_b, hi_b, data_dev, noise_var, beta0, config, S,
+                        int(getattr(self, "vi_steps", 400)))
+                    self.vi_params_ = tuple(p.cpu().double().numpy() for p in vi_params)
+                else:
+                    chain0, warm_stage, carry, n_w2 = self._sampler_setup(
+                        starts, bounds, R, (Xp, Yp), data_dev, n, n_pad, lo_b, hi_b,
+                        noise_var, beta0, config)
+                    par_s, nll, state, acc, inv_mass, step, chains = self._fit_hmc(
+                        seed, chain0, lo_b, hi_b, data_dev, noise_var, beta0, config, S,
+                        int(getattr(self, "hmc_warmup", 64)), warm_stage, carry, n_w2)
+                    self.accept_rate_ = acc.cpu().double().numpy()
+                    # (draws, chains, P) box-coordinate draws for ESS
+                    # diagnostics (models/hmc.effective_sample_size)
+                    self.sample_chains_ = chains.cpu().double().numpy()
+                    self._sampler_carry = (inv_mass.cpu().double().numpy(),
+                                           step.cpu().double().numpy(), (self.optimizer, n_pad))
+                self.theta_samples_ = 10.0 ** par_s[:, :dim].cpu().double().numpy()
+                par = torch.quantile(par_s, 0.5, dim=0)  # the posterior median
+                config = config._replace(n_ensemble=S)
+            elif self.optimizer == "CMA":
                 par, nll, state = self._fit_cma(starts, lo_b, hi_b, data_dev, noise_var,
                                                 beta0, config)
             else:
@@ -394,10 +527,18 @@ class GaussianProcess:
         self.noise_var = noise_var
         self._state = state
         self._config_cache = config
-        self.theta_ = np.asarray(theta_h, dtype=float)[:dim]
+        full_par = np.asarray(theta_h, dtype=float)
+        # the log10 MAP (or posterior-median) vector: seeds the next refit's
+        # sampler chains
+        self._map_par_log10 = np.log10(np.maximum(full_par, 1e-300))
+        self.theta_ = full_par[:dim]
         self.log_likelihood_ = -float(nll_h)
         self.sigma2 = np.asarray(s2_h, dtype=float)
-        if isinstance(self.mean, BasisExpansionTrend) and self._estimate_trend_user:
+        if (
+            config.n_ensemble == 0
+            and isinstance(self.mean, BasisExpansionTrend)
+            and self._estimate_trend_user
+        ):
             self.mean.beta = torch.as_tensor(np.asarray(beta_h, np.float32))
         self.is_fitted = True
         self._n, self._dim, self._m = n, dim, m
@@ -406,14 +547,15 @@ class GaussianProcess:
     # ------------------------------------------------------------------
     def load_fitted(self, theta, state_fields: dict, config_fields: dict) -> "GaussianProcess":
         """Adopt a fit made elsewhere (e.g. by the JAX package): theta (dim,),
-        the numpy fields of its PosteriorState and of its GPConfig."""
+        the numpy fields of its PosteriorState (point or stacked) and of its
+        GPConfig, in this model's dtype."""
         from .convert import gpconfig_from_fields, posterior_state_from_numpy
 
-        self._state = posterior_state_from_numpy(state_fields, self.device)
+        self._state = posterior_state_from_numpy(state_fields, self.device, self.dtype)
         self._config_cache = gpconfig_from_fields(config_fields)
         self.theta_ = np.asarray(theta, dtype=float).ravel()
         self._dim = self._state.X.shape[1]
-        self._m = self._state.beta.shape[1]
+        self._m = self._state.beta.shape[-1]
         self._n = int(self._state.mask.sum().item())
         self.is_fitted = True
         return self
@@ -424,7 +566,7 @@ class GaussianProcess:
         Xq[:nq] = X
         Xj = self._tensor(Xq)
         with torch.no_grad():
-            mu, mse = _predict_point(self._state, Xj, self._trend_F(Xj), self._config_cache, eval_mse)
+            mu, mse = predict_gp(self._state, Xj, self._trend_F(Xj), self._config_cache, eval_mse)
         return mu[:nq], (mse[:nq] if mse is not None else None)
 
     def predict(self, X, eval_MSE: bool = False):
@@ -459,5 +601,5 @@ class GaussianProcess:
 
     def predict_torch(self, Xq: torch.Tensor, eval_mse: bool = True):
         """predict on device tensors, differentiable in Xq:
-        (Nq, dim) -> (mu[Nq, m], mse[Nq, m])."""
-        return _predict_point(self._state, Xq, self._trend_F(Xq), self._config_cache, eval_mse)
+        (Nq, dim) -> (mu[Nq, m], mse[Nq, m]); an ensemble's mixture."""
+        return predict_gp(self._state, Xq, self._trend_F(Xq), self._config_cache, eval_mse)

@@ -3,7 +3,8 @@
 Counterpart of bayesian_optimization_tpu/models/likelihood.py: the
 concentrated likelihood in 'noiseless', 'noisy' and 'noise_estim' modes, the
 restricted (REML) likelihood, the optional MAP prior on log10 theta, the
-posterior state at chosen hyperparameters, and batched BLUP predict.
+posterior state at chosen hyperparameters, batched BLUP predict, and the
+mixture predict of a hyperparameter ensemble (HMC, NUTS and VI fits).
 
 Where the JAX package vmapped `neg_log_likelihood` over restart lanes, here
 the lanes are a leading batch axis of `log10_par`, written out: one call
@@ -41,7 +42,7 @@ class GPConfig(NamedTuple):
     n_basis: int = 1
     trend: str = "constant"  # 'constant' | 'linear' | 'quadratic' | 'custom'
     jitter: float = 1e-6
-    n_ensemble: int = 0  # >0 (HMC/VI ensembles) is not ported yet
+    n_ensemble: int = 0  # >0: a stacked posterior of that many samples (HMC/NUTS/VI), predicted as a mixture
     theta_prior_strength: float = 0.0  # >0: MAP with a weak Gaussian prior on log10 theta
 
 
@@ -203,20 +204,22 @@ class PosteriorState(NamedTuple):
 
 @torch.no_grad()
 def posterior_state(log10_par, X, Y, F, mask, n, noise_var, beta0, config: GPConfig) -> PosteriorState:
-    """The fit-time auxiliary state at one hyperparameter vector (P,)."""
+    """The fit-time auxiliary state at one hyperparameter vector (P,), or
+    the stacked states of an ensemble (S, P): each field then carries a
+    leading S axis, except X and mask, which its members share. The S
+    correlation matrices are one Matern launch and one factorisation."""
     par = torch.as_tensor(log10_par).to(device=X.device, dtype=X.dtype)
     theta, extra = split_params(par, config)
     R = _correlation_for_mode(theta, extra, X, mask, noise_var, config)
     m = Y.shape[1]
     L, L_inv, W, min_pivot = chol_inv_whiten(R, torch.cat([Y, F], dim=1))
-    Ft = W[:, m:]
-    G, beta, rho = _gls(W[:, :m], Ft, beta0, config.estimate_trend)
+    Ft = W[..., m:]
+    G, beta, rho = _gls(W[..., :m], Ft, beta0, config.estimate_trend)
     sigma2, nv, s2t = _resolve_variances(extra, rho, float(n), F.shape[1], noise_var, config)
     scale = sigma2 / s2t.clamp_min(1e-300)
-    gamma = (L_inv.T @ rho) * scale[None, :] * mask[:, None]
-    G_inv = torch.linalg.solve_triangular(
-        G, torch.eye(G.shape[0], dtype=X.dtype, device=X.device), upper=True
-    )
+    gamma = (L_inv.mT @ rho) * scale[..., None, :] * mask[:, None]
+    eye = torch.eye(G.shape[-1], dtype=X.dtype, device=X.device)
+    G_inv = torch.linalg.solve_triangular(G, eye.expand_as(G), upper=True)
     return PosteriorState(
         theta=theta, L=L, L_inv=L_inv, Ft=Ft, G=G, G_inv=G_inv, beta=beta,
         gamma=gamma, sigma2=sigma2, noise_var=nv, scale=scale, X=X, mask=mask,
@@ -228,19 +231,45 @@ def predict(state: PosteriorState, Xq: torch.Tensor, Fq: torch.Tensor, config: G
             eval_mse: bool = True):
     """Batched BLUP mean and MSE at query points: (mu[Nq, m], mse[Nq, m]);
     mse is the latent posterior variance, clipped at 0. Differentiable in Xq.
-    The (Nq, n_pad) cross-covariance is one hand-kernel launch."""
+    The (Nq, n_pad) cross-covariance is one hand-kernel launch. A stacked
+    state gives every member's (mu, mse), (S, Nq, m), its S cross-covariances
+    one launch of shape (S, Nq, n_pad)."""
     kern = kernel_fn(config.kernel)
     r0 = kern(state.theta, Xq, state.X) * state.mask[None, :]
     mu = Fq @ state.beta + r0 @ state.gamma
     if not eval_mse:
         return mu, None
-    rt = state.L_inv @ r0.T
-    reduction = (rt * rt).sum(0)
+    rt = state.L_inv @ r0.mT
+    reduction = (rt * rt).sum(-2)
     if config.estimate_trend:
-        u = state.G_inv.T @ (state.Ft.T @ rt - Fq.T)
-        correction = (u * u).sum(0)
+        u = state.G_inv.mT @ (state.Ft.mT @ rt - Fq.T)
+        correction = (u * u).sum(-2)
     else:
         correction = torch.zeros_like(reduction)
-    base = 1.0 - state.scale[None, :] * reduction[:, None] + correction[:, None]
-    mse = (base * state.sigma2[None, :]).clamp_min(0.0)
+    base = 1.0 - state.scale[..., None, :] * reduction[..., None] + correction[..., None]
+    mse = (base * state.sigma2[..., None, :]).clamp_min(0.0)
     return mu, mse
+
+
+def predict_ensemble(state: PosteriorState, Xq, Fq, config: GPConfig, eval_mse: bool = True):
+    """Posterior-mixture prediction for a stacked PosteriorState (the
+    hyperparameter posterior of HMC, NUTS or VI): the mixture mean and the
+    law-of-total-variance mixture variance, clipped at 0. The variance is
+    the mean of the members' variances plus that of their means about the
+    mixture mean: the JAX package's E[var + mu^2] - mu^2, the same number,
+    cancels in float32 where the means are large beside their spread."""
+    point_cfg = config._replace(n_ensemble=0)
+    mus, vars_ = predict(state, Xq, Fq, point_cfg, eval_mse)
+    mu = mus.mean(0)
+    if not eval_mse:
+        return mu, None
+    var = (vars_ + (mus - mu) ** 2).mean(0)
+    return mu, var.clamp_min(0.0)
+
+
+def predict_gp(state: PosteriorState, Xq, Fq, config: GPConfig, eval_mse: bool = True):
+    """The GP's predict: the mixture of an ensemble state (config.n_ensemble
+    > 0), else the point posterior's."""
+    if config.n_ensemble > 0:
+        return predict_ensemble(state, Xq, Fq, config, eval_mse)
+    return predict(state, Xq, Fq, config, eval_mse)

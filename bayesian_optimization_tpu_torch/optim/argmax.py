@@ -22,8 +22,11 @@ The restart and chain pools are drawn from a torch.Generator seeded from
 `seed` (on the CPU, so a seed gives the same pool on every device);
 `x0_seed` overwrites each pool's head, which is how the parity tests hand
 both packages the same starts. The chains' own draws come from a generator
-on the device, seeded from the same stream. Not ported yet (they raise):
-constraints, meshes, PCA, a random-forest prior, EHVI and qEHVI.
+on the device, seeded from the same stream. A posterior may be the stacked
+state of a hyperparameter ensemble (GPConfig.n_ensemble > 0): the criterion
+then sees the mixture's mean and variance, and every engine runs on it
+unchanged. Not ported yet (they raise): constraints, meshes, PCA, a
+random-forest prior, EHVI and qEHVI.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from .._device import DEFAULT_DEVICE, resolve_device
-from ..models.likelihood import GPConfig, PosteriorState, predict, trend_basis
+from ..models.likelihood import GPConfig, PosteriorState, predict_gp, trend_basis
 from ..ops.acquisition import acquisition_fn
 from ..ops.optimize import maximize_restarts
 from .cma import best_per_group, run_cma
@@ -75,7 +78,7 @@ def make_unit_criterion(
         if fixed_mask is not None:
             U = torch.where(fixed_mask[None, :] > 0, fixed_vals[None, :], U)
         E = encoding.unit_to_embed(U)
-        mu, var = predict(state, E, trend_basis(config, E), config, True)
+        mu, var = predict_gp(state, E, trend_basis(config, E), config, True)
         mu0, sd0 = mu[:, 0], torch.sqrt(var[:, 0].clamp_min(0.0))
         if not minimize:
             mu0 = -mu0

@@ -8,7 +8,9 @@ non-zero, and no phase's exception is caught:
   2. build: compile the hand-written kernels of csrc/ (nvcc, sm_90a);
   3. each kernel against its plain PyTorch twin on the card, at the main
      path's shapes (whiten_fused also at ragged blocks of n <= 128 and at
-     the hybrid factorisation's panel shape): max error against the stated
+     the hybrid factorisation's panel shape, and both kernels at the
+     samplers' 8-chain and the ensemble predict's shapes, chol_inv_whiten
+     at the stacked state's): max error against the stated
      tolerance, and both times (ms per call by CUDA events around 10 calls,
      median of 7 windows; ms on the device from the profiler, a session that
      traced no kernel retried, "not measured" if every try was empty: the
@@ -48,10 +50,19 @@ non-zero, and no phase's exception is caught:
      allows) at its result against the CPU's;
  10. (d) parity configs 3 (ParallelBO, q=8) and 4 (mixed space, MIES)
      end to end, seed 0: regret and wall;
-each of phases 4 and 7-10 zeroes the launch counters just before it and
-reads them just after, and fails if a kernel of its path did not launch
-(the Matern forward on every path, its backward on the batched BFGS and
-the mixed fit, the factorisation on the fits). Then the kernels' JSON line
+ 11. the posterior-ensemble paths at n=1000, d=5: (a) bench.py's NUTS cell
+     (hmc_warmup 64, n_ensemble 8, the BFGS EI argmax over the ensemble), a
+     cold iteration, 2 carried warm-ups and 4 timed reps, with transitions,
+     leapfrogs, mean depth, accept rates, step sizes, ESS, one profiled
+     refit (launches a leapfrog, idle share) and the fit's quality beside
+     the BFGS fit's; (b) one HMC and one VI fit; (c) the card against the
+     CPU path: the mixture at 64 points, the sampler's target and gradient
+     at the chain states, one NUTS transition from the same draws
+     (printed); (d) the ensemble argmax alone;
+each of phases 4, 7-10 and 11's paths zeroes the launch counters just
+before it and reads them just after, and fails if a kernel of its path did
+not launch (the Matern forward on every path, its backward on the batched
+BFGS, the mixed fit and the samplers, the factorisation on the fits). Then the kernels' JSON line
 (with the batch and engine paths' shapes and every path's launches), the
 card's name and power limit, and last the result line {"ok": true,
 "device": {...}}.
@@ -77,6 +88,9 @@ from bayesian_optimization_tpu_torch import (
     constant_trend, fmin, require_cuda,
 )
 from bayesian_optimization_tpu_torch.core.bo import _sample_t
+from bayesian_optimization_tpu_torch.models import effective_sample_size
+from bayesian_optimization_tpu_torch.models import gp as gp_module
+from bayesian_optimization_tpu_torch.models.hmc import Draws, _Chains, _nuts_step, _value_and_grad
 from bayesian_optimization_tpu_torch.models.likelihood import PIV_TOL, GPConfig, neg_log_likelihood
 from bayesian_optimization_tpu_torch.optim.argmax import make_unit_criterion
 from bayesian_optimization_tpu_torch.ops import _build
@@ -84,6 +98,7 @@ from bayesian_optimization_tpu_torch.ops.hopper_kernels import (
     _nu_code, matern_bwd_fused, matern_bwd_plain, matern_fused, matern_plain,
     reset_launch_counts, whiten_fused, whiten_plain,
 )
+from bayesian_optimization_tpu_torch.ops.linalg import _block_tri_inv, chol_inv_whiten
 
 DIM = 5
 MIXED_D = 6  # parity config 4's space embedded: 2 reals, 1 integer, a 3-level one-hot
@@ -92,6 +107,7 @@ MATERN_TOL = 5e-6      # absolute, as tests/test_pallas.py holds matern_pallas
 MATERN_BWD_TOL = 1e-4  # max |g - g_twin| / max |g_twin|, the twin in float64
 WHITEN_L_TOL = 1e-4    # max |L - L_twin| / max |L_twin|
 WHITEN_W_TOL = 1e-3    # max |W - W_twin| / max(1, max |W_twin|)
+CHOL_INV_TOL = 1e-3    # max |L^-1 - plain| / max |plain|
 PALLAS = "bayesian_optimization_tpu/ops/pallas_kernels.py"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 FP32_FLOP_PER_S = 67e12     # H100 SXM, outside the tensor cores
@@ -114,12 +130,16 @@ MATERN_SHAPES = (("cold ladder rung 1", 10, 256, None, DIM), ("cold ladder rung 
                  ("mixed fit rung 2", 6, 512, None, MIXED_D),
                  ("mixed fit final", 2, 1024, None, MIXED_D),
                  ("mixed posterior state", 1, 1024, None, MIXED_D),
-                 ("CMA fit on the mixed space", 10, 1024, None, MIXED_D))
+                 ("CMA fit on the mixed space", 10, 1024, None, MIXED_D),
+                 ("sampler leapfrog, warm-up subset", 8, 256, None, DIM),
+                 ("sampler leapfrog, ensemble state", 8, 1024, None, DIM),
+                 ("ensemble predict, argmax trip", 8, 25, 1024, DIM))
 NEW_SHAPES = ("batched BFGS trip, q=8 x 25", "CMA/SMC generation", "MIES generation, 5 restarts",
               "MIES generation, 6 restarts", "config 3 fit, bucket 16", "config 3 fit, bucket 64",
               "config 4 fit, bucket 16", "config 4 fit, bucket 64", "mixed fit rung 1",
               "mixed fit rung 2", "mixed fit final", "mixed posterior state",
-              "CMA fit on the mixed space")
+              "CMA fit on the mixed space", "sampler leapfrog, warm-up subset",
+              "sampler leapfrog, ensemble state", "ensemble predict, argmax trip")
 
 
 def log(msg: str) -> None:
@@ -306,12 +326,15 @@ def kernel_like(batch: int, n: int, seed: int) -> torch.Tensor:
 
 def matern_inputs(B: int, N: int, M, seed: int = 0, D: int = DIM):
     """(theta, X, Y) for a main-path shape: the training matrix of B lanes
-    (theta (B, D), Y None) or the argmax's cross matrix (theta (D,))."""
+    (theta (B, D), Y None) or the argmax's cross matrix (theta (D,), or
+    (B, D) for an ensemble's B members)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     X = torch.rand((N, D), generator=g, device="cuda")
     Y = None if M is None else torch.rand((M, D), generator=g, device="cuda")
     theta = 10 ** (torch.rand((B, D), generator=g, device="cuda") * 2 - 1)
-    return (theta, X) if M is None else (theta[0].contiguous(), X, Y)
+    if M is None:
+        return theta, X
+    return (theta[0].contiguous() if B == 1 else theta), X, Y
 
 
 def shape_row(label, B, N, M, D, err, t_k, t_p, b_ms, b_by, d_k, d_p) -> dict:
@@ -381,7 +404,10 @@ MATERN_BWD_SHAPES = (("warm refit", 2, 1024, None, (True, False, False), DIM),
                      ("mixed fit rung 1", 10, 256, None, _DTHETA, MIXED_D),
                      ("mixed fit rung 2", 6, 512, None, _DTHETA, MIXED_D),
                      ("mixed fit final", 2, 1024, None, _DTHETA, MIXED_D),
-                     ("CMA fit on the mixed space", 10, 1024, None, _DTHETA, MIXED_D))
+                     ("CMA fit on the mixed space", 10, 1024, None, _DTHETA, MIXED_D),
+                     ("sampler leapfrog, warm-up subset", 8, 256, None, _DTHETA, DIM),
+                     ("sampler leapfrog, ensemble state", 8, 1024, None, _DTHETA, DIM),
+                     ("ensemble predict, argmax trip", 8, 25, 1024, _DX, DIM))
 
 
 def check_matern_bwd():
@@ -461,11 +487,15 @@ def log_whiten_split(label: str, split, nb: int) -> None:
 
 
 def check_whiten():
-    worst, head = 0.0, None
-    # (batch, n): the MLE ladder's lanes at each bucket/rung size, and
-    # ragged blocks (any n <= 128 is one block of width n)
+    """whiten_fused against its twin at every path's (batch, n); returns the
+    worst absolute error, the (2, 1024) numbers and the rows of the
+    samplers' 8-chain shapes."""
+    worst, head, rows = 0.0, None, []
+    # (batch, n): the MLE ladder's lanes at each bucket/rung size, ragged
+    # blocks (any n <= 128 is one block of width n), and the samplers' 8
+    # chains on the n/4 warm-up subset and on all rows
     for batch, n in ((10, 16), (10, 37), (10, 64), (10, 100), (2, 128), (10, 256), (6, 512),
-                     (2, 1024), (10, 1024)):
+                     (2, 1024), (10, 1024), (8, 256), (8, 1024)):
         R = kernel_like(batch, n, seed=n + batch)
         B = torch.randn((batch, n, 2), device="cuda", generator=torch.Generator(device="cuda").manual_seed(n))
         R_before = R.clone()
@@ -488,6 +518,10 @@ def check_whiten():
             f"twin {t_p:.4f} ms/call ({fmt(d_p)} ms on the device)")
         assert errL < WHITEN_L_TOL and errW < WHITEN_W_TOL, (n, errL, errW)
         assert bool((piv > 0).all()) and Dinv.shape == Dinv0.shape
+        if batch == 8:  # "shape" [batch, n, n, right-hand sides]
+            rows.append(shape_row(f"sampler leapfrog, {n} rows", batch, n, None, B.shape[-1],
+                                  max(float((L - L0).abs().max()), float((W - W0).abs().max())),
+                                  t_k, t_p, b_ms, b_by, d_k, d_p))
         if n == 1024:
             log_whiten_split(f"({batch}, {n}, {n})", whiten_split(lambda: whiten_fused(R, B)), n // 128)
         if (batch, n) == (2, 1024):
@@ -530,7 +564,49 @@ def check_whiten():
     log(f"  whiten_fused failed lanes: indefinite piv = {float(piv[1]):.3e}, NaN piv = "
         f"{float(piv[2])} (healthy lane {float(piv[0]):.3e})")
     assert float(piv[0]) > 0 and not (float(piv[1]) > 0) and math.isnan(float(piv[2]))
-    return worst, head
+    return worst, head, rows
+
+
+def chol_inv_bound(batch: int, n: int, mb: int):
+    """chol_inv_whiten's bound: R and B read, L, L^-1 and W written; the
+    Cholesky (n^3/3), the triangular inverse (n^3/3) and the forward solve
+    (n^2 mb), per matrix."""
+    return bound(4 * batch * (3 * n * n + 2 * n * mb + 1), batch * (2 * n ** 3 / 3 + n * n * mb))
+
+
+def check_chol_inv_whiten():
+    """chol_inv_whiten for the stacked posterior state of 8 members at 1024
+    rows (one whiten_fused launch and the block inversion) against its plain
+    path (whiten_plain and the same inversion) on the card: L within
+    WHITEN_L_TOL, L^-1 within CHOL_INV_TOL relative, W within WHITEN_W_TOL;
+    returns its row."""
+    R = kernel_like(8, 1024, seed=81)
+    B = torch.randn((1024, 2), device="cuda", generator=torch.Generator(device="cuda").manual_seed(81))
+
+    def plain():
+        _, W0, piv0, L0, Dinv0 = whiten_plain(R, B.expand(8, 1024, 2))
+        return L0, _block_tri_inv(L0, Dinv0), W0, piv0
+
+    L, L_inv, W, piv = chol_inv_whiten(R, B)
+    L0, L_inv0, W0, _ = plain()
+    torch.cuda.synchronize()
+    errs = (float((L - L0).abs().max() / L0.abs().max()),
+            float((L_inv - L_inv0).abs().max() / L_inv0.abs().max()),
+            float((W - W0).abs().max()) / max(1.0, float(W0.abs().max())))
+    t_k = time_ms(lambda: chol_inv_whiten(R, B), windows=5, calls=3)
+    t_p = time_ms(plain, windows=5, calls=3)
+    d_k = device_ms(lambda: chol_inv_whiten(R, B), calls=3)
+    d_p = device_ms(plain, calls=3)
+    b_ms, b_by = chol_inv_bound(8, 1024, 2)
+    log(f"  chol_inv_whiten (8, 1024, 1024), the stacked posterior state: relerr L {errs[0]:.3e} (tol "
+        f"{WHITEN_L_TOL}), L^-1 {errs[1]:.3e} (tol {CHOL_INV_TOL}), W {errs[2]:.3e} (tol {WHITEN_W_TOL}); "
+        f"{t_k:.4f} ms/call ({fmt(d_k)} ms on the device), bound {b_ms:.4f} ms ({b_by}), share of bound "
+        f"{fmt(ratio(b_ms, d_k), '.3f')}; plain path {t_p:.4f} ms/call ({fmt(d_p)} ms on the device)")
+    assert errs[0] < WHITEN_L_TOL and errs[1] < CHOL_INV_TOL and errs[2] < WHITEN_W_TOL, errs
+    assert bool((piv > 0).all())
+    return shape_row("chol_inv_whiten, ensemble state", 8, 1024, None, 2,
+                     max(float((L - L0).abs().max()), float((W - W0).abs().max())),
+                     t_k, t_p, b_ms, b_by, d_k, d_p)
 
 
 def padded(X, y, n_pad: int):
@@ -629,11 +705,12 @@ def counts() -> dict:
             "whiten_fused": whiten_fused.launches}
 
 
-def profiled(fn):
+def profiled(fn, by_name=None):
     """(result, device ms, kernel launches, wall s) of one call of fn under
     the profiler: every traced kernel's duration summed, their count (both
     None if the session traced no kernel), and the call's wall time with the
-    profiler on (longer than without it)."""
+    profiler on (longer than without it). A dict `by_name` receives each
+    kernel name's device ms."""
     res = {}
 
     def call():
@@ -647,6 +724,8 @@ def profiled(fn):
     if not kernels:
         log("  (the profiler traced no kernel in this call: its device time is not measured)")
         return res["out"], None, None, res["wall"]
+    for e in kernels if by_name is not None else ():
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     return res["out"], sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels), res["wall"]
 
 
@@ -906,6 +985,210 @@ def parity_runs(paths: dict):
     assert paths["parity_config_4"]["matern_fused"] > 0
 
 
+N_WARM, N_ENSEMBLE = 64, 8  # bench.py:162-163, the NUTS cell's settings
+
+
+def posterior_gp(optimizer: str, **settings):
+    """bench.py's posterior GP at n=1000, d=5 (hmc_warmup 64, n_ensemble 8)."""
+    gp = GaussianProcess(mean=constant_trend(DIM), corr="matern", thetaL=1e-3 * np.ones(DIM),
+                         thetaU=1e3 * np.ones(DIM), nugget=1e-6, random_state=0, optimizer=optimizer)
+    gp.hmc_warmup, gp.n_ensemble = N_WARM, N_ENSEMBLE
+    for k, v in settings.items():
+        setattr(gp, k, v)
+    return gp
+
+
+class NutsResults:
+    """Keeps every NUTSResult the GP's fit gets from nuts_sample (its mean
+    depth, which the fit does not keep), for the duration of a with block."""
+
+    def __enter__(self):
+        self.results, self._inner = [], gp_module.nuts_sample
+
+        def recorded(*args, **kwargs):
+            self.results.append(self._inner(*args, **kwargs))
+            return self.results[-1]
+
+        gp_module.nuts_sample = recorded
+        return self
+
+    def __exit__(self, *exc):
+        gp_module.nuts_sample = self._inner
+
+
+def held_out_err(gp) -> float:
+    X_h, y_h = held_out(200)
+    return float(np.abs(gp.predict(X_h) - y_h).max())
+
+
+def nuts_path(X, y, bfgs_gp, paths: dict):
+    """(a) bench.py's NUTS cell: hmc_warmup 64, n_ensemble 8 (8 chains, one
+    draw each at thin 2), then the BFGS EI argmax with 25 restarts over the
+    ensemble; a cold fit (half-length MLE ladder for the chains' seed,
+    phase 1 on the n/4 subset), 2 carried refits as warm-ups, 4 timed
+    carried refits. A leapfrog is one Matern backward launch in the fit
+    (plus one at each phase's start). One carried refit profiled."""
+    enc = RealSpace([[0.0, 1.0]] * DIM).encoding()
+    gp = posterior_gp("NUTS")
+    argmax = AcquisitionArgmax(enc, method="BFGS", n_restart=5 * DIM, seed=0)
+    plugin = float(y.min())
+    n_w2 = max(8, N_WARM // 4)
+    n_sampling = 2 * max(1, -(-N_ENSEMBLE // 8))  # thin 2
+
+    def iteration():
+        c0 = counts()
+        _, fit_s = timed(lambda: gp.fit(X, y))
+        bwd = counts()["matern_fused_bwd"] - c0["matern_fused_bwd"]
+        (u, v), ask_s = timed(lambda: argmax(gp.posterior, gp.config, "EI", {"plugin": plugin}))
+        assert np.all(np.isfinite(u)) and math.isfinite(v)
+        return fit_s, ask_s, bwd
+
+    reset_launch_counts()
+    with NutsResults() as rec:
+        cold = iteration()
+        reps = [iteration() for _ in range(6)]
+    c = paths["nuts_fit_argmax"] = counts()
+    assert all(v > 0 for v in c.values()), c
+    t = reps[2:]
+    walls = [f + a for f, a, _ in t]
+    depth = [round(float(r.mean_depth.mean()), 3) for r in rec.results]
+    log(f"[11] (a) NUTS fit + EI argmax, n={len(X)} d={DIM}, hmc_warmup {N_WARM}, n_ensemble {N_ENSEMBLE} "
+        f"(bench.py's cell): median {statistics.median(walls):.4f} s, min {min(walls):.4f} s over "
+        f"{len(walls)} carried reps {[round(w, 4) for w in walls]}; fit {[round(f, 4) for f, _, _ in t]} s, "
+        f"argmax {[round(a, 4) for _, a, _ in t]} s; cold first iteration: fit {cold[0]:.4f} s, argmax "
+        f"{cold[1]:.4f} s; counters over the 7 iterations {c}")
+    log(f"  transitions: cold fit {N_WARM} (phase 1, n/4 rows) + {n_w2} (phase 2) + {n_sampling} "
+        f"(sampling), carried refit {n_w2} + {n_sampling}; Matern backward launches in each fit (the "
+        f"leapfrogs, one more at each phase's start; the cold fit's also its MLE ladder): cold "
+        f"{cold[2]}, carried {[b for _, _, b in reps]}; mean depth of the sampling transitions, each fit "
+        f"{depth}")
+    carry = gp._sampler_carry
+    log(f"  accept rate per chain {np.round(gp.accept_rate_, 4).tolist()}, step sizes "
+        f"{np.round(carry[1], 5).tolist()}, ESS over sample_chains_ {np.round(effective_sample_size(gp.sample_chains_), 2).tolist()} "
+        f"({gp.sample_chains_.shape[0]} draw a chain: the estimator returns draws x chains)")
+    c0, by_name = counts(), {}
+    _, dev_ms, n_k, wall_prof = profiled(lambda: gp.fit(X, y), by_name)
+    leaps = counts()["matern_fused_bwd"] - c0["matern_fused_bwd"]
+    fit_med = statistics.median([f for f, _, _ in t])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  one carried refit profiled: {leaps} Matern backward launches, {fmt(n_k, 'g')} kernel launches, "
+        f"{fmt(ratio(n_k, leaps), '.1f')} a leapfrog, {fmt(dev_ms, '.2f')} ms on the device, {wall_prof:.4f} s "
+        f"with the profiler on; idle share {fmt(idle_share(dev_ms, wall_prof), '.3f')} against it, "
+        f"{fmt(idle_share(dev_ms, fit_med), '.3f')} against the median unprofiled fit {fit_med:.4f} s; "
+        f"device ms by kernel, largest first: "
+        + "; ".join(f"{name.split('(')[0][-48:]} {ms:.2f}" for name, ms in top))
+    log(f"  posterior-median theta {np.round(gp.theta_, 4).tolist()}, ensemble NLL {-gp.log_likelihood_:.4f} "
+        f"(the BFGS fit's {-bfgs_gp.log_likelihood_:.4f}, the CMA fit's in phase 9); max |mu - y| on 200 "
+        f"held-out points {held_out_err(gp):.4f} (the BFGS fit's {held_out_err(bfgs_gp):.4f})")
+    assert np.isfinite(gp.log_likelihood_) and np.all(np.isfinite(gp.theta_samples_))
+    return gp
+
+
+def hmc_vi_paths(X, y, paths: dict):
+    """(b) HMC (12 leapfrogs a trajectory, jittered) and VI (400 ADVI steps,
+    8 Monte-Carlo lanes) at n=1000, a cold fit each."""
+    for optimizer, settings in (("HMC", {}), ("VI", {"vi_steps": 400})):
+        gp = posterior_gp(optimizer, **settings)
+        reset_launch_counts()
+        _, wall = timed(lambda: gp.fit(X, y))
+        c = paths[f"{optimizer.lower()}_fit"] = counts()
+        assert all(v > 0 for v in c.values()), (optimizer, c)
+        extra = (f"accept rate per chain {np.round(gp.accept_rate_, 4).tolist()}" if optimizer == "HMC"
+                 else f"(mean, log_std) {[np.round(p, 3).tolist() for p in gp.vi_params_]}")
+        log(f"  (b) {optimizer} fit, n={len(X)}: {wall:.4f} s (cold), counters {c}; {extra}; "
+            f"posterior-median theta {np.round(gp.theta_, 4).tolist()}, ensemble NLL "
+            f"{-gp.log_likelihood_:.4f}, held-out max |mu - y| {held_out_err(gp):.4f}")
+        assert np.isfinite(gp.log_likelihood_) and np.all(np.isfinite(gp.theta_samples_))
+
+
+def logp_z_on(device, gp, X, y, dtype=torch.float32):
+    """The sampler's target on `device` for gp's data: (value_and_grad over
+    unconstrained z (C, P), lo, hi)."""
+    Xp, Yp, mask = padded(X, y, gp.posterior.X.shape[0])
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    Xt, Yt, mt = t(Xp), t(Yp), t(mask)
+    b = gp._hyper_bounds(DIM, y)
+    lo, hi = t(b[:, 0]), t(b[:, 1])
+    config = gp.config._replace(n_ensemble=0)
+
+    def logp(p):
+        return -neg_log_likelihood(p, Xt, Yt, mt[:, None], mt, len(X), gp.noise_var,
+                                   t(np.zeros((1, 1))), config, prior_lo=lo, prior_hi=hi)
+
+    return _value_and_grad(logp, lo, hi), lo, hi
+
+
+def ensemble_vs_cpu(gp, X, y, paths: dict, val_abs_tol: float, grad_abs_tol: float):
+    """(c) The card against the CPU path on the NUTS fit's carried state:
+    the mixture at 64 points (1e-4 relative); the sampler's target and its
+    gradient at the chain states, within the absolute errors phase 4 allows
+    on its random lanes (val_abs_tol, grad_abs_tol: near an optimum the
+    target is a small difference of large float32 sums and the gradient
+    nearly vanishes, so their own scale is no yardstick), beside both
+    float32 paths' errors against the CPU path in float64; one NUTS
+    transition from the same draws (printed only: a U-turn decision at its
+    threshold may flip in float32). (d) The ensemble argmax alone, with the
+    counters zeroed just before it."""
+    cpu_gp = on_cpu(gp)
+    Xq = np.random.default_rng(8).uniform(0, 1, (64, DIM))
+    (mu, var), (mu0, var0) = gp.predict(Xq, eval_MSE=True), cpu_gp.predict(Xq, eval_MSE=True)
+    e_mu, e_var = (float(np.abs(a - b).max() / np.abs(b).max()) for a, b in ((mu, mu0), (var, var0)))
+    x_box = gp.sample_chains_[-1]  # (C, P) chain states
+    out = {}
+    blk = Draws(torch.Generator().manual_seed(5)).nuts(*x_box.shape, 6, torch.float32)
+
+    class Fixed:
+        def __init__(self, device):
+            self.device = device
+
+        def nuts(self, *_):
+            return tuple(b.to(self.device) for b in blk)
+
+    inv_mass, step, _ = gp._sampler_carry
+    vg64, lo64, hi64 = logp_z_on("cpu", gp, X, y, torch.float64)
+    frac64 = (torch.tensor(x_box, dtype=torch.float64) - lo64) / (hi64 - lo64)
+    lp64, g64 = (a.numpy() for a in vg64(torch.log(frac64) - torch.log1p(-frac64)))
+    for dev in ("card", "cpu"):
+        vg, lo, hi = logp_z_on(gp.device if dev == "card" else "cpu", gp, X, y)
+
+        def t(a):
+            return torch.tensor(a, dtype=torch.float32, device=lo.device)
+
+        frac = (t(x_box) - lo) / (hi - lo)
+        z = torch.log(frac) - torch.log1p(-frac)
+        lp, g = vg(z)
+        zeros = torch.zeros(len(z), device=lo.device)
+        chains = _Chains(z=z, logp=lp, grad=g, log_eps=torch.log(t(step)), log_eps_bar=zeros,
+                         h_bar=zeros, m1=z, m2=z, count=zeros, inv_mass=t(inv_mass))
+        c, alpha, depth = _nuts_step(chains, vg, Fixed(lo.device), 6)
+        out[dev] = [a.detach().cpu().double().numpy() for a in (lp, g, c.z, alpha, depth)]
+    (lp_k, g_k, z_k, a_k, d_k), (lp_p, g_p, z_p, a_p, d_p) = out["card"], out["cpu"]
+    err_v, err_g = float(np.abs(lp_k - lp_p).max()), float(np.abs(g_k - g_p).max())
+    log(f"  (c) card against the CPU path, the NUTS fit's carried state: mixture at 64 points rel err mu "
+        f"{e_mu:.3e}, var {e_var:.3e} (tol 1e-4); the target at the {len(x_box)} chain states (largest "
+        f"|value| {float(np.abs(lp_p).max()):.4g}) abs err {err_v:.3e} (tol {val_abs_tol:.3e}, phase 4's), "
+        f"its gradient (largest entry {float(np.abs(g_p).max()):.4g}) abs err {err_g:.3e} (tol "
+        f"{grad_abs_tol:.3e}); against the CPU path in float64: the card's value {float(np.abs(lp_k - lp64).max()):.3e}, "
+        f"gradient {float(np.abs(g_k - g64).max()):.3e}, the CPU float32 path's "
+        f"{float(np.abs(lp_p - lp64).max()):.3e} and {float(np.abs(g_p - g64).max()):.3e}; one NUTS "
+        f"transition from the same draws: depths {d_k.tolist()} (CPU {d_p.tolist()}), alpha "
+        f"{np.round(a_k, 4).tolist()} (CPU {np.round(a_p, 4).tolist()}), max |z - z_cpu| "
+        f"{float(np.abs(z_k - z_p).max()):.3e}")
+    assert e_mu < 1e-4 and e_var < 1e-4 and err_v < val_abs_tol and err_g < grad_abs_tol, (
+        e_mu, e_var, err_v, err_g)
+    am = AcquisitionArgmax(RealSpace([[0.0, 1.0]] * DIM).encoding(), method="BFGS", n_restart=5 * DIM, seed=1)
+    reset_launch_counts()
+    (u, v), wall = timed(lambda: am(gp.posterior, gp.config, "EI", {"plugin": float(y.min())}))
+    c = paths["ensemble_argmax"] = counts()
+    assert c["matern_fused"] > 0 and c["matern_fused_bwd"] > 0, c
+    log(f"  (d) the EI argmax over the 8-member ensemble alone: {wall:.4f} s, {c['matern_fused_bwd']} trips, "
+        f"{wall / c['matern_fused_bwd'] * 1e3:.2f} ms a trip, counters {c}; value {v:.4e}, its CPU "
+        f"criterion's {cpu_values(cpu_gp, am.encoding, 'EI', {'plugin': float(y.min())}, u)[0]:.4e}")
+
+
 def ptxas_summary(log_text: str):
     """One line per kernel of the build's ptxas report: registers and spill
     bytes. Of the Matern kernels' instantiations (per feature chunk DC and
@@ -957,7 +1240,8 @@ def main() -> None:
     log("[3] kernels vs plain twins on the card")
     (m_err, m_ms, m_plain, m_bound, m_by), m_rows = check_matern()
     (b_err, b_ms, b_plain, b_bound, b_by), b_rows = check_matern_bwd()
-    w_err, (w_ms, w_plain, w_bound, w_by) = check_whiten()
+    w_err, (w_ms, w_plain, w_bound, w_by), w_rows = check_whiten()
+    w_rows.append(check_chol_inv_whiten())
     log("[3b] the card's path against the plain path on the CPU, on a small input")
     check_reference()
 
@@ -1028,6 +1312,11 @@ def main() -> None:
     engine_runs(gp, X, y, paths)
     cma_mle(X, y, gp, paths, grad_abs_tol)
     parity_runs(paths)
+
+    # 11. the posterior-ensemble paths at bench size
+    nuts_gp = nuts_path(X, y, gp, paths)
+    hmc_vi_paths(X, y, paths)
+    ensemble_vs_cpu(nuts_gp, X, y, paths, 1e-4 * float(np.abs(r["nll"]).max()), grad_abs_tol)
     log(f"  profiler sessions: {PROFILER_SESSIONS['run']}, of which {PROFILER_SESSIONS['empty']} traced "
         f"no kernel")
 
@@ -1056,7 +1345,8 @@ def main() -> None:
          "source": "bayesian_optimization_tpu_torch/csrc/whiten.cu",
          "replaces": f"{PALLAS}:278", "launches": launches["whiten_fused"],
          "max_abs_err": w_err, "ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound,
-         "bound_by": w_by, "library_ms": None, "launches_by_path": by_path("whiten_fused")},
+         "bound_by": w_by, "library_ms": None, "shapes": w_rows,
+         "launches_by_path": by_path("whiten_fused")},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

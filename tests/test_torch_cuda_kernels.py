@@ -278,9 +278,10 @@ def test_matern_kernel_engine_shapes(dev, nu, shape):
 # (lanes B, n, D): the training matrices the new paths fit -- the parity
 # configs' small buckets (10 starts at 16 and 64 rows, D = 5 and the mixed
 # space's D = 6), the mixed space's ladder at n = 1000 (its own compile-time
-# D = 6 variant of the symmetric kernel), and 10 lanes at 1024 rows, D = 6
+# D = 6 variant of the symmetric kernel), 10 lanes at 1024 rows, D = 6, and
+# the samplers' 8 chains on the n/4 warm-up subset and on all 1024 rows
 FIT_SHAPES = [(10, 16, 5), (10, 64, 5), (10, 16, 6), (10, 64, 6), (10, 256, 6), (6, 512, 6),
-              (2, 1024, 6), (10, 1024, 6)]
+              (2, 1024, 6), (10, 1024, 6), (8, 256, 5), (8, 1024, 5)]
 
 
 @pytest.mark.parametrize("nu", NUS)
@@ -307,6 +308,63 @@ def test_matern_kernel_fit_shapes(dev, nu, shape):
                                  True, True, (True, False, False))
     torch.cuda.synchronize()
     assert float((g_t.double() - w_t).abs().max() / w_t.abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("nu", NUS)
+def test_matern_kernel_ensemble_query_shape(dev, nu):
+    """The ensemble predict's cross matrices: 8 members' theta, 25 queries
+    against 1024 training rows, one launch. The forward against the twin
+    (5e-6) and the query gradient, summed over the 8 lanes, against the twin
+    in float64 (1e-4 relative)."""
+    r = np.random.default_rng(8)
+    theta = torch.tensor(10 ** r.uniform(-1, 2, (8, 5)), dtype=torch.float32, device=dev)
+    Xq = torch.tensor(r.uniform(0, 1, (25, 5)), dtype=torch.float32, device=dev)
+    X = torch.tensor(r.uniform(0, 1, (1024, 5)), dtype=torch.float32, device=dev)
+    K = matern_fused(theta, Xq, X, nu=nu)
+    assert K.shape == (8, 25, 1024)
+    assert float((K - matern_plain(theta, Xq, X, nu=nu)).abs().max()) < 5e-6
+    G = torch.tensor(r.standard_normal((8, 25, 1024)), dtype=torch.float32, device=dev)
+    code = _nu_code(nu)
+    _, g_x, _ = matern_bwd_fused(theta, Xq, X, G, code, False, False, (False, True, False))
+    K64 = matern_plain(theta.double(), Xq.double(), X.double(), nu=nu)
+    _, w_x, _ = matern_bwd_plain(theta.double(), Xq.double(), X.double(), K64, G.double(), code,
+                                 False, False, (False, True, False))
+    torch.cuda.synchronize()
+    assert g_x.shape == (25, 5)
+    assert float((g_x.double() - w_x).abs().max() / w_x.abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("n", [256, 1024])
+def test_whiten_kernel_ensemble_shapes(dev, n):
+    """8 chains' factorisations: every leapfrog's likelihood on the n/4
+    warm-up subset (256) and on all rows (1024)."""
+    R = torch.tensor(_kernel_like(n, 8, seed=n + 8), device=dev)
+    B = torch.tensor(np.random.default_rng(n).standard_normal((8, n, 2)), dtype=torch.float32, device=dev)
+    _check_whiten(R, B)
+
+
+def test_chol_inv_whiten_ensemble_state(dev):
+    """The stacked posterior state of 8 members at 1024 rows: (L, L^-1, W,
+    piv) of chol_inv_whiten on the card against its plain path (whiten_plain
+    and the same block inversion) on the same card; L within 1e-4 and L^-1
+    within 1e-3 relative, L^-1 L within 1e-3 of I."""
+    from bayesian_optimization_tpu_torch.ops.hopper_kernels import whiten_plain as plain
+    from bayesian_optimization_tpu_torch.ops.linalg import _block_tri_inv, chol_inv_whiten
+
+    R = torch.tensor(_kernel_like(1024, 8, seed=81), device=dev)
+    B = torch.tensor(np.random.default_rng(81).standard_normal((1024, 2)), dtype=torch.float32, device=dev)
+    before = whiten_fused.launches
+    L, L_inv, W, piv = chol_inv_whiten(R, B)
+    torch.cuda.synchronize()
+    assert whiten_fused.launches == before + 1
+    _, W0, piv0, L0, Dinv0 = plain(R, B.expand(8, 1024, 2))
+    L_inv0 = _block_tri_inv(L0, Dinv0)
+    assert float((L - L0).abs().max() / L0.abs().max()) < 1e-4
+    assert float((L_inv - L_inv0).abs().max() / L_inv0.abs().max()) < 1e-3
+    assert float((W - W0).abs().max()) < 1e-3 * max(1.0, float(W0.abs().max()))
+    eye = torch.eye(1024, device=dev)
+    assert float((L_inv @ L - eye).abs().max()) < 1e-3
+    assert bool((piv > 0).all())
 
 
 @pytest.mark.parametrize("method", ["BFGS", "OnePlusOne_Cholesky_CMA", "SMC"])
@@ -342,3 +400,36 @@ def test_batch_argmax_launches_the_kernels(dev, method):
         with torch.no_grad():
             want = float(crit(torch.tensor(u[None], dtype=torch.float32))[0])
         assert abs(v - want) <= 1e-4 * abs(want), (v, want)
+
+
+def test_nuts_fit_and_ensemble_argmax_launch_the_kernels(dev):
+    """A NUTS fit (n = 60, d = 5, 8 chains) and the BFGS EI argmax over its
+    ensemble on the card: every kernel launches on the fit, the Matern
+    forward and backward on the argmax, and the mixture at 16 points agrees
+    with the same state's on the CPU (1e-4 relative)."""
+    from bayesian_optimization_tpu_torch import AcquisitionArgmax, GaussianProcess, RealSpace
+    from bayesian_optimization_tpu_torch.models.trend import constant_trend
+    from bayesian_optimization_tpu_torch.ops.hopper_kernels import reset_launch_counts
+
+    r = np.random.default_rng(0)
+    X = r.uniform(0, 1, (60, 5))
+    y = ((X - 0.35) ** 2).sum(1)
+    y = (y - y.mean()) / y.std()
+    gp = GaussianProcess(mean=constant_trend(5), thetaL=1e-3 * np.ones(5), thetaU=1e3 * np.ones(5),
+                         nugget=1e-6, random_state=0, optimizer="NUTS", device=dev)
+    gp.hmc_warmup, gp.n_ensemble = 16, 8
+    reset_launch_counts()
+    gp.fit(X, y)
+    assert matern_fused.launches > 0 and matern_fused.bwd_launches > 0 and whiten_fused.launches > 0
+    assert gp.config.n_ensemble == 8 and gp.posterior.L.shape == (8, 64, 64)
+    reset_launch_counts()
+    u, v = AcquisitionArgmax(RealSpace([[0.0, 1.0]] * 5).encoding(), method="BFGS", n_restart=8,
+                             seed=0, device=dev)(gp.posterior, gp.config, "EI", {"plugin": float(y.min())})
+    assert matern_fused.launches > 0 and matern_fused.bwd_launches > 0 and np.isfinite(v)
+    cpu = GaussianProcess(thetaL=1e-3 * np.ones(5), thetaU=1e3 * np.ones(5), device="cpu")
+    cpu.load_fitted(gp.theta_, {k: v.cpu().numpy() for k, v in gp.posterior._asdict().items()},
+                    gp.config._asdict())
+    Xq = r.uniform(0, 1, (16, 5))
+    (mu, var), (mu0, var0) = gp.predict(Xq, eval_MSE=True), cpu.predict(Xq, eval_MSE=True)
+    assert np.abs(mu - mu0).max() <= 1e-4 * np.abs(mu0).max()
+    assert np.abs(var - var0).max() <= 1e-4 * np.abs(var0).max()
