@@ -1,9 +1,10 @@
-"""BO engine core: data model, ask/evaluate/tell loop, BO flavors."""
+"""BO engine core: data model, ask/evaluate/tell loop, BO flavors, PCABO."""
 from .solution import Solution
 from .base import BaseBO, BaseOptimizer
 from .bo import BO, AnnealingBO, MultiAcquisitionBO, NoisyBO, ParallelBO, SelfAdaptiveBO
+from .extensions import PCABO
 
 __all__ = [
     "Solution", "BaseOptimizer", "BaseBO",
-    "BO", "ParallelBO", "AnnealingBO", "SelfAdaptiveBO", "NoisyBO", "MultiAcquisitionBO",
+    "BO", "ParallelBO", "AnnealingBO", "SelfAdaptiveBO", "NoisyBO", "MultiAcquisitionBO", "PCABO",
 ]

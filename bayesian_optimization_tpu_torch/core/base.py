@@ -15,10 +15,12 @@ Capability parity with the reference's two base classes:
 PyTorch port of bayesian_optimization_tpu/core/base.py. The GP and the
 acquisition argmax are the port's (models/gp.py, optim/argmax.py), both on
 the device named by `device=` (default "cuda"); a mixed space runs the MIES
-engine. Batch proposals are `ParallelBO`'s (core/bo.py): `BaseBO` raises
-for n_point > 1, as the JAX package does. Not ported yet (they raise):
-constraints (eq_fun/ineq_fun), particle meshes, a NonparametricTrend prior
-and non-GP surrogates.
+engine. Equality/inequality constraints (eq_fun/ineq_fun) become a
+`ConstraintProgram` (optim/constraints.py) whose penalty rides inside every
+criterion; one that cannot run as tensor code moves a BFGS argmax to the
+CMA engine. Batch proposals are `ParallelBO`'s (core/bo.py): `BaseBO`
+raises for n_point > 1, as the JAX package does. Not ported yet (they
+raise): particle meshes, a NonparametricTrend prior and non-GP surrogates.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from ..utils import (
 )
 from ..utils.expr import evaluate_size
 from ..utils.logging import PhaseTimer, timed_phase
+from ..utils.penalty import eval_constraints_host
 from .solution import Solution
 
 
@@ -292,9 +295,24 @@ class BaseBO(BaseOptimizer):
         m._theta_bounds_unit_scaled = True
 
     def _build_constraints(self):
-        if self.h is not None or self.g is not None:
-            raise NotImplementedError("constraints are not ported to the GPU package yet")
-        return None
+        """Compile eq/ineq callables into a batched `ConstraintProgram` for
+        the argmax (ref parity: the `Penalized` criterion wrapper +
+        feasibility filter of acquisition/optim/__init__.py:33-52,124-126)."""
+        if self.h is None and self.g is None:
+            return None
+        from ..optim.constraints import ConstraintProgram
+
+        cp = ConstraintProgram(
+            self.encoding, h=self.h, g=self.g,
+            eval_type=self._eval_type, var_names=self.var_names, device=self.device,
+        )
+        self.logger.info(
+            "constraints compiled for the acquisition argmax: "
+            f"traceable={cp.traceable} (n_h={cp.n_h}, n_g={cp.n_g})"
+            + ("" if cp.traceable else "; the host path copies each criterion evaluation's "
+               "population to the host and back (one device sync)")
+        )
+        return cp
 
     def _set_internal_optimization(self, opts: dict):
         """Pick the argmax engine (ref parity: base.py:192-229 + option.py)."""
@@ -303,6 +321,19 @@ class BaseBO(BaseOptimizer):
             all_real = bool(np.all(self.encoding.is_real))
             can_grad = isinstance(self.model, GaussianProcess)
             method = "BFGS" if (all_real and can_grad) else "MIES"
+        if (
+            method == "BFGS"
+            and self._constraints is not None
+            and not self._constraints.traceable
+        ):
+            # a host-path penalty has no gradient: use the derivative-free
+            # engine (the reference's BFGS path instead finite-differences
+            # the penalty, optim/__init__.py:49)
+            method = "OnePlusOne_Cholesky_CMA"
+            self.logger.warning(
+                "constraints do not run as tensor code; the acquisition argmax "
+                "falls back to the derivative-free CMA engine"
+            )
         self._optimizer_name = method
         self._argmax = AcquisitionArgmax(
             self.encoding,
@@ -310,6 +341,7 @@ class BaseBO(BaseOptimizer):
             n_restart=opts.get("n_restart"),
             max_FEs=opts.get("max_FEs"),
             seed=(self.random_seed or 0) + 17,
+            constraints=self._constraints,
             device=self.device,
         )
 
@@ -358,6 +390,18 @@ class BaseBO(BaseOptimizer):
             n_point = self.n_point if n_point is None else int(n_point)
             X = self.arg_max_acquisition(n_point=n_point, fixed=fixed)
             X = self.pre_eval_check(X)
+            if self._constraints is not None and len(X):
+                # drop infeasible argmax winners so the back-fill below
+                # replaces them with constrained-DoE samples (ref parity:
+                # argmax_restart returning [] for all-infeasible restarts,
+                # optim/__init__.py:124-126,149-150)
+                feas = self._constraints.feasible_rows(X)
+                if not np.all(feas):
+                    self.logger.warning(
+                        f"iteration {self.iter_count}: {int((~feas).sum())} "
+                        "infeasible acquisition winners dropped"
+                    )
+                    X = [x for x, ok in zip(X, feas) if ok]
             if len(X) < n_point:
                 self.logger.warning(
                     f"iteration {self.iter_count}: duplicated candidates from the "
@@ -390,12 +434,33 @@ class BaseBO(BaseOptimizer):
 
         xopt = self.xopt
         self.logger.info(f"fopt: {xopt.fitness.ravel()}")
+        if self.h is not None or self.g is not None:
+            hv, gv = eval_constraints_host(
+                xopt.first(), self._host_constraint(self.h), self._host_constraint(self.g)
+            )
+            pen = (np.abs(hv).sum() if hv is not None else 0.0) + (
+                np.maximum(gv, 0).sum() if gv is not None else 0.0
+            )
+            self.logger.info(f"penalty: {pen:.4e}")
         if not warm_start:
             self.iter_count += 1
             self.hist_f.append(xopt.fitness.ravel().copy())
 
+    def _host_constraint(self, fn):
+        """Adapt a user constraint to take a full LIST row regardless of
+        eval_type (ref parity: utils/utils.py:218-232 func_with_list_arg)."""
+        if fn is None or self._eval_type == "list":
+            return fn
+        names = self.var_names
+
+        def wrapped(x):
+            return fn(dict(zip(names, list(x))))
+
+        return wrapped
+
     def create_DoE(self, n_point: int, fixed: Optional[dict] = None) -> List:
-        """LHS design with fixed-variable fill (ref parity: base.py:362-400)."""
+        """LHS design with constraint-aware sampling and fixed-variable fill
+        (ref parity: base.py:362-400)."""
         fixed = fixed or {}
         free_space = self._search_space.filter(list(fixed.keys()), invert=True)
         free_names = free_space.var_name
@@ -405,12 +470,15 @@ class BaseBO(BaseOptimizer):
             vals.update(fixed)
             return [vals[name] for name in self.var_names]
 
+        h = _partial_constraint(self._host_constraint(self.h), self.var_names, fixed, free_names)
+        g = _partial_constraint(self._host_constraint(self.g), self.var_names, fixed, free_names)
+
         DoE: List[list] = []
         for _ in range(4):
             want = n_point - len(DoE)
             if want <= 0:
                 break
-            S = free_space.sample(want, method="LHS" if want > 1 else "uniform")
+            S = free_space.sample(want, method="LHS" if want > 1 else "uniform", h=h, g=g)
             rows = [fill(list(r)) for r in np.atleast_2d(S)] if len(S) else []
             rows = [r for r in rows if r is not None]
             if rows:
@@ -484,8 +552,14 @@ class BaseBO(BaseOptimizer):
     # ----------------------------------------------------- acquisition optim
     def _acq_par_defaults(self, par: dict) -> dict:
         out = dict(par)
-        if self.acquisition_fun in ("EI", "PI", "EpsilonPI", "MGFI") and "plugin" not in out:
+        if self.acquisition_fun in ("EI", "PI", "EpsilonPI", "MGFI", "GEI") and "plugin" not in out:
             out["plugin"] = self.fmin if self.minimize else -self.fmax
+        if self._constraints is not None:
+            # dynamic-penalty time parameter: the reference's Penalized.t
+            # starts at 10 and increments once per criterion eval, ending
+            # near 10 + budget; that terminal strength holds for the whole
+            # argmax (optim/__init__.py:43-50)
+            out.setdefault("_penalty_t", 10.0 + float(self._argmax.max_FEs))
         return out
 
     def _fixed_units(self, fixed: Optional[dict]) -> Optional[Dict[int, float]]:
@@ -516,11 +590,15 @@ class BaseBO(BaseOptimizer):
     def _argmax_one(self, acq_par: dict, fixed_units, x0_seed=None) -> Tuple[np.ndarray, float]:
         # the surrogate fits standardized raw fitness, so the criterion must
         # carry the problem's own min/max orientation
+        name = self.acquisition_fun
+        acq_par = dict(acq_par)
+        if name == "GEI":  # the improvement order rides in the name
+            name = f"GEI{int(acq_par.pop('g', 2))}"
         return self._argmax(
             self.model.posterior,
             self.model.config,
-            self.acquisition_fun,
-            dict(acq_par),
+            name,
+            acq_par,
             minimize=self.minimize,
             fixed=fixed_units,
             x0_seed=x0_seed,
@@ -536,15 +614,17 @@ class BaseBO(BaseOptimizer):
         import dill
 
         os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
-        logger, argmax = self.logger, self._argmax
+        logger, argmax, constraints = self.logger, self._argmax, self._constraints
         try:
             self.logger = None
             self._argmax = None  # rebuilt on load
+            self._constraints = None  # rebuilt from h/g on load
             with open(filename, "wb") as f:
                 dill.dump(self, f)
         finally:
             self.logger = logger
             self._argmax = argmax
+            self._constraints = constraints
 
     @classmethod
     def load(cls, filename: str):
@@ -553,6 +633,7 @@ class BaseBO(BaseOptimizer):
         with open(filename, "rb") as f:
             obj = dill.load(f)
         obj.logger = get_logger(f"{type(obj).__name__}({obj.instance_id})", console=obj.verbose)
+        obj._constraints = obj._build_constraints()
         obj._set_internal_optimization({"optimizer": obj._optimizer_name})
         return obj
 
@@ -612,3 +693,19 @@ class BaseBO(BaseOptimizer):
             self.update_model()
         return self
 
+
+def _partial_constraint(fn, var_names, fixed: dict, free_names):
+    """Close over fixed variables so constraints see full vectors
+    (ref parity: utils/utils.py:149-215 partial_argument)."""
+    if fn is None:
+        return None
+    if not fixed:
+        return fn
+
+    def wrapped(x_free):
+        vals = dict(zip(free_names, list(np.atleast_1d(np.asarray(x_free, dtype=object)))))
+        vals.update(fixed)
+        full = [vals[n] for n in var_names]
+        return fn(full)
+
+    return wrapped

@@ -90,8 +90,15 @@ def _masked_logdet_d(d, mask):
 
 
 def _gls(Yt, Ft, beta0, estimate_trend: bool):
-    """Trend coefficients and whitened residuals from L^-1 Y, L^-1 F."""
-    if estimate_trend:
+    """Trend coefficients and whitened residuals from L^-1 Y, L^-1 F. The
+    constant trend (p = 1) takes the 1 x 1 QR in closed form, G = |F|
+    (its sign, which only |G| and G^-1 G^-T ever see, taken positive) and
+    beta = F^T Y / F^T F: no QR and no triangular solve, forward or
+    backward."""
+    if estimate_trend and Ft.shape[-1] == 1:
+        G = torch.linalg.vector_norm(Ft, dim=-2, keepdim=True)
+        beta = (Ft.mT @ Yt) / (G * G)
+    elif estimate_trend:
         Q, G = torch.linalg.qr(Ft, mode="reduced")
         beta = torch.linalg.solve_triangular(G, Q.mT @ Yt, upper=True)
     else:
@@ -218,8 +225,11 @@ def posterior_state(log10_par, X, Y, F, mask, n, noise_var, beta0, config: GPCon
     sigma2, nv, s2t = _resolve_variances(extra, rho, float(n), F.shape[1], noise_var, config)
     scale = sigma2 / s2t.clamp_min(1e-300)
     gamma = (L_inv.mT @ rho) * scale[..., None, :] * mask[:, None]
-    eye = torch.eye(G.shape[-1], dtype=X.dtype, device=X.device)
-    G_inv = torch.linalg.solve_triangular(G, eye.expand_as(G), upper=True)
+    if G.shape[-1] == 1:
+        G_inv = 1.0 / G
+    else:
+        eye = torch.eye(G.shape[-1], dtype=X.dtype, device=X.device)
+        G_inv = torch.linalg.solve_triangular(G, eye.expand_as(G), upper=True)
     return PosteriorState(
         theta=theta, L=L, L_inv=L_inv, Ft=Ft, G=G, G_inv=G_inv, beta=beta,
         gamma=gamma, sigma2=sigma2, noise_var=nv, scale=scale, X=X, mask=mask,

@@ -1,13 +1,13 @@
 """Acquisition functions as batched PyTorch criteria.
 
 Counterpart of bayesian_optimization_tpu/ops/acquisition.py: EI, PI,
-epsilon-PI, UCB and MGFI (t <= 22.36) for minimization with an improvement
-plugin, each a function of batched posterior moments (mu[N], sd[N]) ->
-value[N], maximized by the argmax engines. sd ~ 0 and non-finite values
-give 0, as in the JAX package. Each parameter (plugin, t, alpha, epsilon)
-is a number or a per-lane tensor (N,): a batch of q criteria runs as one
-population whose lanes carry their own criterion's parameters. GEI is not
-ported yet.
+epsilon-PI, UCB, MGFI (t <= 22.36) and generalized EI of order g for
+minimization with an improvement plugin, each a function of batched
+posterior moments (mu[N], sd[N]) -> value[N], maximized by the argmax
+engines. sd ~ 0 and non-finite values give 0, as in the JAX package. Each
+parameter (plugin, t, alpha, epsilon) is a number or a per-lane tensor (N,):
+a batch of q criteria runs as one population whose lanes carry their own
+criterion's parameters; GEI's order g is a Python integer.
 """
 from __future__ import annotations
 
@@ -79,12 +79,31 @@ def mgfi(mu, sd, plugin, t: float = 1.0, **_):
     return _guard(_cdf(beta_p) * torch.exp(log_term.clamp_max(60.0)), sd)
 
 
+def gei(mu, sd, plugin, g: int = 2, **_):
+    """Generalized expected improvement E[I^g] (Schonlau et al. 1998) by the
+    truncated-moment recursion M_0 = Phi(u), M_1 = -phi(u),
+    M_k = -u^(k-1) phi(u) + (k-1) M_(k-2), u = (plugin - mu) / sd:
+    E[I^g] = sd^g sum_k C(g, k) u^(g-k) (-1)^k M_k. g = 1 is EI."""
+    g = int(g)
+    sd_safe = sd.clamp_min(_SD_FLOOR)
+    u = (_lane(plugin, mu) - mu) / sd_safe
+    phi_u = _pdf(u)
+    moments = [_cdf(u), -phi_u]
+    for k in range(2, g + 1):
+        moments.append(-(u ** (k - 1)) * phi_u + (k - 1) * moments[k - 2])
+    total = 0.0
+    for k in range(g + 1):
+        total = total + math.comb(g, k) * (u ** (g - k)) * ((-1.0) ** k) * moments[k]
+    return _guard(sd_safe ** g * total, sd)
+
+
 ACQUISITIONS: Dict[str, Callable] = {
     "EI": ei,
     "PI": pi,
     "EpsilonPI": epsilon_pi,
     "UCB": ucb,
     "MGFI": mgfi,
+    "GEI": gei,
 }
 
 
@@ -118,7 +137,7 @@ class AcquisitionFunction:
 
     def criterion_params(self) -> dict:
         p = dict(self.params)
-        if self._fn_name in ("EI", "PI", "EpsilonPI", "MGFI"):
+        if self._fn_name in ("EI", "PI", "EpsilonPI", "MGFI", "GEI"):
             p["plugin"] = self._plugin
         return p
 
@@ -161,6 +180,15 @@ class UCB(AcquisitionFunction):
 
     def __init__(self, alpha: float = 0.5, **kwargs):
         super().__init__(alpha=alpha, **kwargs)
+
+
+class GEI(AcquisitionFunction):
+    _fn_name = "GEI"
+
+    def __init__(self, g: int = 2, **kwargs):
+        if int(g) < 1:
+            raise ValueError("g must be a positive integer")
+        super().__init__(g=int(g), **kwargs)
 
 
 class MGFI(AcquisitionFunction):

@@ -12,10 +12,18 @@ factorisation of float32 on the card goes through the hand kernel
   `whiten_fused` call per 1024-wide diagonal block, which also solves that
   block's subdiagonal panel and right-hand side in the same launch sequence.
 
-The TPU-only code-size workarounds (the XLA column loops, nilpotent-squaring
-solves, `_super_inv` and the superpanel solves) have no counterpart. The
-backward of `whiten` uses torch.linalg.solve_triangular: those solves were
-not a Pallas kernel in the JAX package either.
+The backward of `whiten` solves with L^T in the JAX package's superpanel
+form (`_super_inv`, `tri_solve_upper_t_super`): the explicit inverses of
+L's 1024-wide diagonal blocks, built from the kernel's 128-wide `Dinv` by
+block-nilpotent squaring (up to 1024 rows, L^-1 itself), then one GEMM a
+superpanel per solve. Its other form, blocked back substitution over `Dinv`
+(one GEMM a 128-block, the JAX package's choice off the TPU), does fewer
+FLOPs but twice the launches, and the fits that run the backward are
+host-bound: it measured slower end to end on the card. Neither form is
+less accurate than cuBLAS trsm: up to cond(R) ~1e8 each solve adds ~1e-6
+of the gradient, where the float32 factor's own error is 1e-4 to 1e-1
+(tools/whiten_bwd_variants.py). The TPU-only code-size workarounds of the
+forward (the XLA column loops) have no counterpart.
 
 All functions take a leading batch axis (one matrix per restart lane) or
 none. `min_pivot`/`piv` is the smallest raw pivot before the 1e-12 clamp:
@@ -70,37 +78,65 @@ def _factor_hybrid(R: torch.Tensor, B: torch.Tensor, super_block: int = SUPER):
 def _whiten_parts(R: torch.Tensor, B: torch.Tensor):
     """(d, W, piv, L, Dinv) for batched R (Bt, n, n), B (Bt, n, mb)."""
     if R.shape[-1] > SUPER:
-        L, Dinv, piv, W = _factor_hybrid(R, B)
+        L, Dinv, piv, W = _factor_hybrid(R, B, SUPER)
         return L.diagonal(dim1=-2, dim2=-1), W, piv, L, Dinv
     return whiten_fused(R, B)
+
+
+def _super_inv(L: torch.Tensor, Dinv: torch.Tensor, super_block: int) -> list:
+    """Explicit inverses of the super_block-wide diagonal blocks of a blocked
+    factor (L, Dinv), one (Bt, S, S) tensor a superpanel (the last may be
+    narrower), each by `_block_tri_inv` over its own Dinv blocks."""
+    n, T = L.shape[-1], Dinv.shape[-1]
+    per = super_block // T
+    return [_block_tri_inv(L[:, kb:kb + super_block, kb:kb + super_block],
+                           Dinv[:, kb // T:kb // T + per])
+            for kb in range(0, n, super_block)]
+
+
+def tri_solve_upper_t_super(L: torch.Tensor, Dsup: list, B: torch.Tensor,
+                            super_block: int) -> torch.Tensor:
+    """Solve L^T X = B bottom-up in super_block-wide panels with their
+    explicit inverses Dsup (`_super_inv`): one subdiagonal GEMM and one
+    inverse GEMM a superpanel."""
+    n = L.shape[-1]
+    X = torch.empty(B.shape, dtype=B.dtype, device=B.device)
+    for k in range(len(Dsup) - 1, -1, -1):
+        kb, ke = k * super_block, min(n, (k + 1) * super_block)
+        Bk = B[:, kb:ke]
+        if ke < n:
+            Bk = torch.baddbmm(Bk, L[:, ke:, kb:ke].mT, X[:, ke:], alpha=-1.0)
+        torch.bmm(Dsup[k].mT, Bk, out=X[:, kb:ke])
+    return X
 
 
 class _Whiten(torch.autograd.Function):
     @staticmethod
     def forward(ctx, R, B):
         with torch.no_grad():
-            d, W, piv, L, _Dinv = _whiten_parts(R, B)
-        ctx.save_for_backward(L, W)
+            d, W, piv, L, Dinv = _whiten_parts(R, B)
+        ctx.save_for_backward(L, W, Dinv)
         ctx.mark_non_differentiable(piv)
         return d, W, piv
 
     @staticmethod
     def backward(ctx, dbar, Wbar, _pivbar):
-        # GEMM-only VJP of bayesian_optimization_tpu/ops/linalg._whiten_bwd;
-        # the triangular solves with L^T go to torch.linalg.solve_triangular
-        L, W = ctx.saved_tensors
-        Lt = L.mT
+        L, W, Dinv = ctx.saved_tensors
+        Dsup = _super_inv(L, Dinv, SUPER)  # once; then a GEMM pair a superpanel a solve
+        return whiten_vjp(L, W, lambda X: tri_solve_upper_t_super(L, Dsup, X, SUPER), dbar, Wbar)
 
-        def solve_ut(X):  # L^-T X
-            return torch.linalg.solve_triangular(Lt, X, upper=True)
 
-        U = solve_ut(Wbar)
-        Lbar = torch.diag_embed(dbar) - torch.tril(U @ W.mT)
-        M = Lt @ Lbar
-        Phi = torch.tril(M) - 0.5 * torch.diag_embed(M.diagonal(dim1=-2, dim2=-1))
-        Y1 = solve_ut(Phi)
-        Y2 = solve_ut(Y1.mT).mT
-        return 0.5 * (Y2 + Y2.mT), U
+def whiten_vjp(L, W, solve_ut, dbar, Wbar):
+    """(Rbar, Bbar) of `whiten` from its cotangents (dbar, Wbar): the
+    GEMM-only VJP of bayesian_optimization_tpu/ops/linalg._whiten_bwd, with
+    `solve_ut` the map X -> L^-T X."""
+    U = solve_ut(Wbar)
+    Lbar = torch.diag_embed(dbar) - torch.tril(U @ W.mT)
+    M = L.mT @ Lbar
+    Phi = torch.tril(M) - 0.5 * torch.diag_embed(M.diagonal(dim1=-2, dim2=-1))
+    Y1 = solve_ut(Phi)
+    Y2 = solve_ut(Y1.mT).mT
+    return 0.5 * (Y2 + Y2.mT), U
 
 
 def whiten(R: torch.Tensor, B: torch.Tensor):

@@ -25,11 +25,22 @@ both packages the same starts. The chains' own draws come from a generator
 on the device, seeded from the same stream. A posterior may be the stacked
 state of a hyperparameter ensemble (GPConfig.n_ensemble > 0): the criterion
 then sees the mixture's mean and variance, and every engine runs on it
-unchanged. Not ported yet (they raise): constraints, meshes, PCA, a
+unchanged.
+
+Constraints (a `ConstraintProgram`, optim/constraints.py) subtract their
+dynamic penalty inside the criterion, and every engine then prefers the best
+feasible final lane of each criterion's population (`_select_feasible`),
+as the JAX package does. Parameters whose names start with "_" are not
+acquisition parameters and are shared by every lane: the penalty's time
+`_penalty_t` and PCABO's out-of-box penalty (`_pca_C`, `_pca_offset`,
+`_box_lo`, `_box_hi`, `_red_lo`, `_red_hi`). "GEI<g>" names generalized EI
+of order g. Not ported yet (they raise or are refused): meshes, a
 random-forest prior, EHVI and qEHVI.
 """
 from __future__ import annotations
 
+import math
+from functools import partial
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -37,7 +48,7 @@ import torch
 
 from .._device import DEFAULT_DEVICE, resolve_device
 from ..models.likelihood import GPConfig, PosteriorState, predict_gp, trend_basis
-from ..ops.acquisition import acquisition_fn
+from ..ops.acquisition import acquisition_fn, gei
 from ..ops.optimize import maximize_restarts
 from .cma import best_per_group, run_cma
 from .mies import MIESSpec, run_mies
@@ -58,6 +69,9 @@ def _inject_seeds(x0: torch.Tensor, x0_seed) -> torch.Tensor:
     return x0
 
 
+_PCA_KEYS = ("_pca_C", "_pca_offset", "_box_lo", "_box_hi", "_red_lo", "_red_hi")
+
+
 def make_unit_criterion(
     encoding,
     state: PosteriorState,
@@ -67,17 +81,47 @@ def make_unit_criterion(
     minimize: bool = True,
     fixed_mask: Optional[torch.Tensor] = None,
     fixed_vals: Optional[torch.Tensor] = None,
+    constraints=None,
 ) -> Callable:
     """crit(U[P, dim], idx=None) -> value[P]: unit cube -> embed -> GP
     posterior -> acquisition. Larger is better. A parameter may be a
     per-lane tensor (L,); `idx` (P,) then names the lanes of U's rows
-    (L-BFGS evaluates only the live lanes), and without it U has all L."""
-    fn = acquisition_fn(acq_name)
+    (L-BFGS evaluates only the live lanes), and without it U has all L.
+    Reserved "_" parameters are never indexed by lane.
+
+    constraints: optional `ConstraintProgram`; its dynamic penalty is
+    subtracted from the criterion (ref parity: the `Penalized` wrapper of
+    optim/__init__.py:33-52, with autograd in place of the reference's
+    finite-difference penalty gradient when the callables trace)."""
+    reserved = {k: v for k, v in acq_params.items() if k.startswith("_")}
+    pca = {k: reserved[k] for k in _PCA_KEYS if k in reserved}
+    penalty_t = reserved.get("_penalty_t", 10.0)
+    acq_params = {k: v for k, v in acq_params.items() if not k.startswith("_")}
+    if acq_name.startswith("GEI"):
+        # the improvement order rides in the name ("GEI3"), as in the JAX package
+        fn = partial(gei, g=int(acq_name[3:] or 2))
+    else:
+        fn = acquisition_fn(acq_name)
+
+    def apply_penalty(value: torch.Tensor, U2d: torch.Tensor) -> torch.Tensor:
+        """value (P,) minus the dynamic penalty of unit rows (P', dim), P' an
+        integer multiple of P (a joint-q criterion sums per-copy terms)."""
+        if constraints is None:
+            return value
+        pen = constraints.penalty(U2d, penalty_t)
+        if pen.shape[0] != value.shape[0]:
+            pen = pen.reshape(value.shape[0], -1).sum(1)
+        return value - pen
+
+    def box_penalty(U: torch.Tensor) -> torch.Tensor:
+        """Minus the total violation of the original box after inverse PCA."""
+        z = pca["_red_lo"] + U * (pca["_red_hi"] - pca["_red_lo"])
+        x = z @ pca["_pca_C"] + pca["_pca_offset"]
+        return -((pca["_box_lo"] - x).clamp_min(0.0).sum(1) + (x - pca["_box_hi"]).clamp_min(0.0).sum(1))
 
     def crit(U: torch.Tensor, idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if fixed_mask is not None:
-            U = torch.where(fixed_mask[None, :] > 0, fixed_vals[None, :], U)
-        E = encoding.unit_to_embed(U)
+        Uf = U if fixed_mask is None else torch.where(fixed_mask[None, :] > 0, fixed_vals[None, :], U)
+        E = encoding.unit_to_embed(Uf)
         mu, var = predict_gp(state, E, trend_basis(config, E), config, True)
         mu0, sd0 = mu[:, 0], torch.sqrt(var[:, 0].clamp_min(0.0))
         if not minimize:
@@ -85,44 +129,79 @@ def make_unit_criterion(
         params = acq_params
         if idx is not None:
             params = {k: v[idx] if torch.is_tensor(v) and v.ndim else v for k, v in params.items()}
-        return fn(mu0, sd0, **params)
+        value = fn(mu0, sd0, **params)
+        if pca:
+            pen = box_penalty(U)
+            value = torch.where(pen < 0.0, pen, value)
+        return apply_penalty(value, Uf)
 
     return crit
 
 
-def _bfgs_argmax(crit, x0, q: int, max_iter: int):
+def _select_feasible(constraints, X, F, x_fallback, f_fallback, groups: int = 1):
+    """The best FEASIBLE final lane of each of `groups` equal populations of
+    X (groups * P, dim) with maximized values F (groups * P,); a group with
+    no feasible lane keeps its fallback (x_fallback (groups, dim), f_fallback
+    (groups,); or (dim,) and () for one group), the penalized best
+    (ref parity: optim/__init__.py:124-126 feasibility filter). Masking is
+    per group, so one criterion's feasible lanes never stand in for
+    another's. Returns ((groups, dim), (groups,))."""
+    feas = constraints.feasible_in_program(X)
+    masked = torch.where(feas, F, torch.full_like(F, -math.inf))
+    xb, fb = best_per_group(X, masked, groups, largest=True)
+    any_f = feas.reshape(groups, -1).any(1)
+    xf, ff = x_fallback.reshape(groups, -1), f_fallback.reshape(groups)
+    return torch.where(any_f[:, None], xb, xf), torch.where(any_f, fb, ff)
+
+
+def _bfgs_argmax(crit, x0, q: int, max_iter: int, constraints=None):
     """q criteria x R restarts (x0 (q * R, d)) as one batched L-BFGS;
     returns each criterion's winner and value, (q, d) and (q,)."""
     dim = x0.shape[-1]
     zeros = torch.zeros(dim, dtype=x0.dtype, device=x0.device)
     res = maximize_restarts(crit, x0, zeros, zeros + 1.0, max_iter=max_iter, lane_index=True)
     # non-finite lanes are +inf in the minimization, so -inf here
-    return best_per_group(res.x, res.fun, q, largest=True)
+    xb, fb = best_per_group(res.x, res.fun, q, largest=True)
+    if constraints is not None:
+        with torch.no_grad():
+            xb, fb = _select_feasible(constraints, res.x, res.fun, xb, fb, q)
+    return xb, fb
 
 
-@torch.no_grad()
-def _cma_argmax(gen, crit, x0, q: int, n_generations: int):
-    dim = x0.shape[-1]
-    zeros = torch.zeros(dim, dtype=x0.dtype, device=x0.device)
-    _, _, xs, fs = run_cma(gen, lambda U: -crit(U), x0, zeros, zeros + 1.0, n_generations)
-    xb, fb = best_per_group(xs, fs, q, largest=False)
+def _es_select(constraints, xb, fb, xs, fs, q: int):
+    """Each group's winner of a minimizing ES (best xb (q, d), fb (q,); final
+    population xs, fs), preferring feasible finals; returns the maximized
+    criterion's winner and value."""
+    if constraints is not None:
+        xb, nfb = _select_feasible(constraints, xs, -fs, xb, -fb, q)
+        return xb, nfb
     return xb, -fb
 
 
 @torch.no_grad()
-def _smc_argmax(gen, crit, x0, q: int, n_rounds: int, n_moves: int):
+def _cma_argmax(gen, crit, x0, q: int, n_generations: int, constraints=None):
     dim = x0.shape[-1]
     zeros = torch.zeros(dim, dtype=x0.dtype, device=x0.device)
-    xb, fb, _, _ = run_smc(gen, lambda U: -crit(U), x0, zeros, zeros + 1.0, n_rounds, n_moves,
-                           groups=q)
-    return xb.reshape(q, dim), -fb.reshape(q)
+    _, _, xs, fs = run_cma(gen, lambda U: -crit(U), x0, zeros, zeros + 1.0, n_generations)
+    xb, fb = best_per_group(xs, fs, q, largest=False)
+    return _es_select(constraints, xb, fb, xs, fs, q)
 
 
 @torch.no_grad()
-def _mies_argmax(gen, crit, spec, n_restarts: int, n_generations: int, dtype, device):
-    xb, fb, _, _ = run_mies(gen, lambda U: -crit(U), spec, n_restarts=n_restarts,
-                            n_generations=n_generations, dtype=dtype, device=device)
-    return xb[None], -fb[None]
+def _smc_argmax(gen, crit, x0, q: int, n_rounds: int, n_moves: int, constraints=None):
+    dim = x0.shape[-1]
+    zeros = torch.zeros(dim, dtype=x0.dtype, device=x0.device)
+    xb, fb, xs, fs = run_smc(gen, lambda U: -crit(U), x0, zeros, zeros + 1.0, n_rounds, n_moves,
+                             groups=q)
+    return _es_select(constraints, xb.reshape(q, dim), fb.reshape(q), xs, fs, q)
+
+
+@torch.no_grad()
+def _mies_argmax(gen, crit, spec, n_restarts: int, n_generations: int, dtype, device,
+                 constraints=None):
+    xb, fb, xs, fs = run_mies(gen, lambda U: -crit(U), spec, n_restarts=n_restarts,
+                              n_generations=n_generations, dtype=dtype, device=device)
+    return _es_select(constraints, xb[None], fb[None], xs, fs, 1)
 
 
 class AcquisitionArgmax:
@@ -135,6 +214,10 @@ class AcquisitionArgmax:
             move blocks, optim/smc.py),
             'auto' -- BFGS for all-real spaces, MIES otherwise.
     Any other name runs the CMA engine, as in the JAX package.
+
+    constraints: optional `ConstraintProgram` applied to every criterion
+    this instance maximizes: the dynamic penalty inside the criterion and
+    the reference's feasibility preference on the final lanes.
     """
 
     def __init__(
@@ -150,8 +233,9 @@ class AcquisitionArgmax:
         device=DEFAULT_DEVICE,
     ):
         self.device = resolve_device(device)
-        if mesh is not None or constraints is not None:
-            raise NotImplementedError("meshes and constraints are not ported to the GPU package yet")
+        if mesh is not None:
+            raise NotImplementedError("meshes are not ported to the GPU package yet")
+        self.constraints = constraints
         self.encoding = encoding
         dim = encoding.dim
         if method == "auto":
@@ -197,19 +281,21 @@ class AcquisitionArgmax:
         """Every engine on q criteria whose parameters are per-lane tensors
         (numbers outside a batch); returns (u (q, dim) on the host, values (q,))."""
         fixed_mask, fixed_vals = self._fixed(fixed)
+        cons = self.constraints
         crit = make_unit_criterion(self.encoding, state, config, acq_name, params, minimize,
-                                   fixed_mask, fixed_vals)
+                                   fixed_mask, fixed_vals, cons)
         if self.method == "BFGS":
-            us, vals = _bfgs_argmax(crit, self._pool(q, self.n_restart, x0_seed), q, self.max_iter)
+            us, vals = _bfgs_argmax(crit, self._pool(q, self.n_restart, x0_seed), q, self.max_iter,
+                                    cons)
         elif self.method == "SMC":
             us, vals = _smc_argmax(self._chain_gen(), crit, self._pool(q, self.n_chains, x0_seed),
-                                   q, self.n_smc_rounds, self.n_smc_moves)
+                                   q, self.n_smc_rounds, self.n_smc_moves, cons)
         elif self.method == "MIES" and not batch:
             us, vals = _mies_argmax(self._chain_gen(), crit, self._spec, self.n_mies_restarts,
-                                    self.n_mies_generations, self.encoding.dtype, self.device)
+                                    self.n_mies_generations, self.encoding.dtype, self.device, cons)
         else:  # the CMA engine; a batch under MIES runs it too, as in the JAX package
             us, vals = _cma_argmax(self._chain_gen(), crit, self._pool(q, self.n_chains, x0_seed),
-                                   q, self.n_generations)
+                                   q, self.n_generations, cons)
         if fixed_mask is not None:
             us = torch.where(fixed_mask > 0, fixed_vals, us)
         us = self.encoding.quantize_unit(us).clamp(0.0, 1.0)
@@ -217,12 +303,13 @@ class AcquisitionArgmax:
 
     def _lane_params(self, acq_params: Dict, reps: int = 1) -> Dict:
         """Parameters as tensors on the device; a list of q values becomes a
-        per-lane vector, each value repeated for its criterion's `reps` lanes."""
-        def one(v):
+        per-lane vector, each value repeated for its criterion's `reps`
+        lanes. Reserved "_" parameters are shared by every lane, as they are."""
+        def one(k, v):
             t = torch.as_tensor(np.asarray(v, dtype=np.float64), dtype=self.encoding.dtype)
-            return (t.repeat_interleave(reps) if t.ndim else t).to(self.device)
+            return (t.repeat_interleave(reps) if t.ndim and not k.startswith("_") else t).to(self.device)
 
-        return {k: one(v) for k, v in acq_params.items()}
+        return {k: one(k, v) for k, v in acq_params.items()}
 
     def __call__(
         self,
@@ -258,8 +345,13 @@ class AcquisitionArgmax:
         keys = set(acq_params_list[0])
         if any(set(p) != keys for p in acq_params_list):
             raise ValueError("all parameter dicts must share the same keys")
+        shared = {k: acq_params_list[0][k] for k in keys if k.startswith("_")}
+        if any(not np.array_equal(np.asarray(p[k]), np.asarray(v))
+               for p in acq_params_list for k, v in shared.items()):
+            raise ValueError("reserved '_' parameters must be the same for every criterion")
         P = {"BFGS": self.n_restart}.get(self.method, self.n_chains)
-        params = self._lane_params({k: [p[k] for p in acq_params_list] for k in keys}, reps=P)
+        lanes = {k: [p[k] for p in acq_params_list] for k in keys if not k.startswith("_")}
+        params = self._lane_params({**lanes, **shared}, reps=P)
         us, vals = self._run(state, config, acq_name, params, q, minimize, fixed, x0_seed,
                              batch=True)
         return [us[i] for i in range(q)], [float(v) for v in vals]

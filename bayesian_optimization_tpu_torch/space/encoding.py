@@ -8,11 +8,11 @@ is compiled once into static arrays; two array representations of a batch:
 - **embed** `E[N, d_embed]`: the surrogate-facing features (reals and
   ordered discretes as scalars, categoricals one-hot).
 
-`unit_to_embed`, `quantize_unit` and `sample_unit` work on torch tensors on
-any device (`unit_to_embed` is differentiable in the real columns); the
-raw <-> unit codecs are host-side numpy, shared with the JAX package, so
-both packages draw the same DoE from the same numpy generator.
-`unit_to_raw` (used by constraints) is not ported yet.
+`unit_to_embed`, `unit_to_raw`, `quantize_unit` and `sample_unit` work on
+torch tensors on any device (`unit_to_embed` and `unit_to_raw` are
+differentiable in the real columns); the raw <-> unit codecs are host-side
+numpy, shared with the JAX package, so both packages draw the same DoE from
+the same numpy generator.
 """
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ import torch
 
 from .space import SearchSpace
 from .variables import Bool, Integer, Ordinal, Real
+
+_NUMERIC = (bool, int, float, np.integer, np.floating)
 
 
 class SpaceEncoding:
@@ -110,6 +112,43 @@ class SpaceEncoding:
             oh = torch.nn.functional.one_hot(levels[..., j], width).to(U.dtype)
             for c in range(width):
                 cols[off + c] = oh[..., c]
+        return torch.stack(cols, dim=-1)
+
+    def unit_to_raw(self, U: torch.Tensor) -> torch.Tensor:
+        """Unit batch [..., dim] -> RAW numeric values [..., dim], the tensor
+        mirror of `decode_unit` for numeric variables: reals through the
+        inverse scale (no precision rounding), integers lo + level * step,
+        bools 0/1, numeric ordinal/discrete levels from a table. Columns
+        whose raw values are not numeric decode to NaN (`ConstraintProgram`
+        checks the result against the host decoder). Differentiable in the
+        real columns; the clamp passes gradient inside [0, 1] only."""
+        levels = self.unit_levels(U)
+        cols = []
+        for j, var in enumerate(self.space.data):
+            if isinstance(var, Real):
+                lo, hi = float(self.lo_t[j]), float(self.hi_t[j])
+                t = lo + (hi - lo) * U[..., j].clamp(0.0, 1.0)
+                scale = var._scale
+                if scale == "log":
+                    t = torch.exp(t)
+                elif scale == "log10":
+                    t = torch.pow(10.0, t)
+                elif scale == "logit":
+                    t = torch.sigmoid(t)
+                elif scale == "bilog":
+                    t = torch.sign(t) * torch.expm1(t.abs())
+                cols.append(t)
+            elif isinstance(var, Integer):
+                cols.append(float(var.bounds[0]) + levels[..., j].to(U.dtype) * float(var.step))
+            elif isinstance(var, Bool):
+                cols.append(levels[..., j].to(U.dtype))
+            else:
+                vals = [var.value_of(k) for k in range(int(self.n_levels[j]))]
+                if all(isinstance(v, _NUMERIC) for v in vals):
+                    table = torch.tensor([float(v) for v in vals], dtype=U.dtype, device=U.device)
+                    cols.append(table[levels[..., j]])
+                else:
+                    cols.append(torch.full(U.shape[:-1], float("nan"), dtype=U.dtype, device=U.device))
         return torch.stack(cols, dim=-1)
 
     def unit_to_embed_np(self, U: np.ndarray) -> np.ndarray:

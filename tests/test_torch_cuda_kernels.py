@@ -433,3 +433,127 @@ def test_nuts_fit_and_ensemble_argmax_launch_the_kernels(dev):
     (mu, var), (mu0, var0) = gp.predict(Xq, eval_MSE=True), cpu.predict(Xq, eval_MSE=True)
     assert np.abs(mu - mu0).max() <= 1e-4 * np.abs(mu0).max()
     assert np.abs(var - var0).max() <= 1e-4 * np.abs(var0).max()
+
+
+@pytest.mark.parametrize("batch, n", [(8, 1024), (2, 256), (2, 2048)])
+def test_whiten_gradient_against_float64(dev, batch, n):
+    """The gradient of whiten (the kernel's forward, the backward over its
+    Dinv: the explicit inverses of L's 1024-wide diagonal blocks, then
+    GEMMs) against float64 autograd through torch's Cholesky on the card,
+    within 1e-3 of the largest entry (tests/test_linalg.py's tolerance for
+    the JAX VJP); no cuBLAS trsm runs in the backward."""
+    from torch.autograd import DeviceType
+
+    from bayesian_optimization_tpu_torch.ops.linalg import whiten
+
+    R = torch.tensor(_kernel_like(n, batch, seed=n + batch), device=dev)
+    B = torch.tensor(np.random.default_rng(n).standard_normal((batch, n, 2)), dtype=torch.float32,
+                     device=dev)
+    Rt = R.clone().requires_grad_(True)
+    d, W, piv = whiten(Rt, B)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        (torch.log(d).sum() + (W ** 2).sum()).backward()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert not any("trsm" in k for k in names), names
+    R64 = R.double().requires_grad_(True)
+    L64 = torch.linalg.cholesky(R64)
+    W64 = torch.linalg.solve_triangular(L64, B.double(), upper=False)
+    (torch.log(L64.diagonal(dim1=-2, dim2=-1)).sum() + (W64 ** 2).sum()).backward()
+    assert bool((piv > 0).all())
+    assert float((Rt.grad.double() - R64.grad).abs().max() / R64.grad.abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("log10_theta", [-0.5, -1.0, -1.5])
+@pytest.mark.parametrize("solver", ["trsm", "substitution", "inverse"])
+def test_whiten_backward_solvers_at_ill_conditioned_r(dev, solver, log10_theta):
+    """At the conditioning the fits reach with theta at its bounds (R
+    (2, 1024), Matern-3/2, nugget 1e-6: cond 4e6 to 1.5e8), the VJP on the
+    kernel's float32 factor with each L^T solver (cuBLAS trsm, the blocked
+    substitution over Dinv, the backward's explicit inverse) is within 1e-5
+    of the float64 VJP of that factor: the solver adds nothing to the
+    float32 factor's own error. whiten's gradient is no farther from float64
+    autograd than the trsm backward's."""
+    from bayesian_optimization_tpu_torch.ops.linalg import _whiten_parts, whiten, whiten_vjp
+    from bayesian_optimization_tpu_torch.tools.whiten_bwd_variants import SOLVERS, ill_conditioned
+
+    R64 = ill_conditioned(2, 1024, log10_theta, dev)
+    B = torch.tensor(np.random.default_rng(1).standard_normal((2, 1024, 2)), device=dev)
+    Rr = R64.clone().requires_grad_(True)
+    L64 = torch.linalg.cholesky(Rr)
+    W64 = torch.linalg.solve_triangular(L64, B, upper=False)
+    (torch.log(L64.diagonal(dim1=-2, dim2=-1)).sum() + (W64 ** 2).sum()).backward()
+    d, W, piv, L, Dinv = _whiten_parts(R64.float(), B.float())
+    assert bool((piv > 0).all())
+    Ld, Wd = L.double(), W.double()
+    own = whiten_vjp(Ld, Wd, SOLVERS["trsm"](Ld, None), 1.0 / d.double(), 2.0 * Wd)[0]
+    g = whiten_vjp(L, W, SOLVERS[solver](L, Dinv), 1.0 / d, 2.0 * W)[0].double()
+    assert float((g - own).abs().max() / own.abs().max()) < 1e-5
+
+    def rel(a):
+        return float((a.double() - Rr.grad).abs().max() / Rr.grad.abs().max())
+
+    Rt = R64.float().requires_grad_(True)
+    dt, Wt, _ = whiten(Rt, B.float())
+    (torch.log(dt).sum() + (Wt ** 2).sum()).backward()
+    trsm = whiten_vjp(L, W, SOLVERS["trsm"](L, Dinv), 1.0 / d, 2.0 * W)[0]
+    assert rel(Rt.grad) <= 1.1 * rel(trsm)
+
+
+@pytest.mark.parametrize("method", ["BFGS", "OnePlusOne_Cholesky_CMA", "SMC", "MIES"])
+def test_constrained_argmax_on_the_card(dev, method):
+    """AcquisitionArgmax(constraints=...) on the card, every engine: a traced
+    inequality (written with numpy) keeps EI's winner feasible, the Matern
+    forward launches, and the card's penalized criterion at the winner is
+    the CPU path's."""
+    from bayesian_optimization_tpu_torch import (
+        AcquisitionArgmax, ConstraintProgram, GaussianProcess, RealSpace,
+    )
+    from bayesian_optimization_tpu_torch.optim.argmax import make_unit_criterion
+
+    r = np.random.default_rng(0)
+    X = r.uniform(0, 1, (60, 5))
+    y = ((X - 0.7) ** 2).sum(1)
+    y = (y - y.mean()) / y.std()
+    gp = GaussianProcess(thetaL=1e-3 * np.ones(5), thetaU=1e3 * np.ones(5), random_state=0, device=dev)
+    gp.fit(X, y)
+    enc = RealSpace([[0.0, 1.0]] * 5).encoding()
+
+    def g(x):
+        return np.sum(x) - 1.5
+
+    cp = ConstraintProgram(enc, g=g, device=dev)
+    assert cp.traceable
+    params = {"plugin": float(y.min()), "_penalty_t": 1e3}
+    fwd = matern_fused.launches
+    u, v = AcquisitionArgmax(enc, method=method, n_restart=8, seed=0, constraints=cp, device=dev)(
+        gp.posterior, gp.config, "EI", params)
+    assert matern_fused.launches > fwd and g(u) <= 1e-6
+    cpu = GaussianProcess(thetaL=1e-3 * np.ones(5), thetaU=1e3 * np.ones(5), device="cpu")
+    cpu.load_fitted(gp.theta_, {k: v_.cpu().numpy() for k, v_ in gp.posterior._asdict().items()},
+                    gp.config._asdict())
+    crit = make_unit_criterion(enc, cpu.posterior, cpu.config, "EI",
+                               {k: torch.tensor(x) for k, x in params.items()},
+                               constraints=ConstraintProgram(enc, g=g, device="cpu"))
+    with torch.no_grad():
+        want = float(crit(torch.tensor(u[None], dtype=torch.float32))[0])
+    assert abs(v - want) <= 1e-4 * max(abs(want), 1e-6), (v, want)
+
+
+def test_pcabo_runs_on_the_card(dev):
+    """PCABO on the card (8-D ellipsoid, 3 components, 16 evaluations):
+    every kernel launches, every point lies in the box."""
+    from bayesian_optimization_tpu_torch import PCABO, RealSpace
+    from bayesian_optimization_tpu_torch.ops.hopper_kernels import reset_launch_counts
+
+    def elli(x):
+        x = np.asarray(x, dtype=float)
+        return float(np.sum(10 ** np.linspace(0, 2, len(x)) * x ** 2))
+
+    opt = PCABO(search_space=RealSpace([[-5.0, 5.0]] * 8, random_seed=0), obj_fun=elli,
+                n_components=3, DoE_size=8, max_FEs=16, random_seed=0, device=dev)
+    reset_launch_counts()
+    opt.run()
+    assert matern_fused.launches > 0 and matern_fused.bwd_launches > 0 and whiten_fused.launches > 0
+    V = np.asarray(opt.data.values, dtype=float)
+    assert opt.eval_count == 16 and V.min() >= -5 - 1e-6 and V.max() <= 5 + 1e-6
