@@ -4,10 +4,13 @@ The same public names as the JAX package, for the slices ported so far:
 `fmin` (n_point >= 1), `BO` and the batch flavors `ParallelBO`,
 `AnnealingBO`, `SelfAdaptiveBO`, `NoisyBO`, `MultiAcquisitionBO` on real and
 mixed spaces, with equality/inequality constraints (`eq_fun`/`ineq_fun`,
-`ConstraintProgram`), `PCABO`, the `GaussianProcess` (Matern or RBF kernel;
-batched L-BFGS or population-CMA MLE, or an HMC/NUTS/VI ensemble), the
-criteria EI, PI, EpsilonPI, UCB, MGFI and GEI, and the `AcquisitionArgmax`
-with its BFGS, CMA, SMC and MIES engines. Each kernel the JAX
+`ConstraintProgram`), `PCABO`, `ConditionalBO`; the `GaussianProcess` (every
+kernel of the JAX package's `_KERNELS`; batched L-BFGS or population-CMA
+MLE, or an HMC/NUTS/VI ensemble; float32 or float64; `gradient`/`Hessian`;
+a `NonparametricTrend` prior), the `RandomForest` grown on the device (no
+scikit-learn) and `SurrogateAggregation`, the criteria EI, PI, EpsilonPI,
+UCB, MGFI and GEI, and the `AcquisitionArgmax` with its BFGS, CMA, SMC and
+MIES engines. Each kernel the JAX
 package wrote in Pallas for the TPU is a CUDA kernel written by hand for
 Hopper (csrc/), built at first use. Public constructors take `device=`
 (default "cuda") and raise when no suitable GPU is present; tests pass
@@ -27,11 +30,11 @@ from .utils import (
     ObjectiveEvaluationError, RecommendationUnavailableError,
 )
 from .core import (
-    BO, PCABO, AnnealingBO, BaseBO, BaseOptimizer, MultiAcquisitionBO, NoisyBO, ParallelBO,
-    SelfAdaptiveBO, Solution,
+    BO, PCABO, AnnealingBO, BaseBO, BaseOptimizer, ConditionalBO, MultiAcquisitionBO, NoisyBO,
+    ParallelBO, SelfAdaptiveBO, Solution,
 )
-from .models import GaussianProcess, trend
-from .models.trend import constant_trend
+from .models import GaussianProcess, RandomForest, SurrogateAggregation, trend
+from .models.trend import NonparametricTrend, constant_trend
 from .ops.acquisition import EI, GEI, MGFI, PI, UCB, EpsilonPI
 from .optim import AcquisitionArgmax, ConstraintProgram
 from .fmin import fmin
@@ -43,8 +46,8 @@ __all__ = [
     "BoolSpace", "SubsetSpace", "Node", "SpaceEncoding",
     "Solution", "BaseOptimizer", "BaseBO",
     "BO", "ParallelBO", "AnnealingBO", "SelfAdaptiveBO", "NoisyBO", "MultiAcquisitionBO",
-    "PCABO", "GaussianProcess", "AcquisitionArgmax", "ConstraintProgram", "trend",
-    "constant_trend", "EI", "PI", "EpsilonPI", "UCB", "MGFI", "GEI",
+    "PCABO", "ConditionalBO", "GaussianProcess", "RandomForest", "SurrogateAggregation",
+    "NonparametricTrend", "AcquisitionArgmax", "ConstraintProgram", "trend", "constant_trend", "EI", "PI", "EpsilonPI", "UCB", "MGFI", "GEI",
     "AskEmptyError", "FlatFitnessError", "RecommendationUnavailableError",
     "ObjectiveEvaluationError", "ConstraintEvaluationError",
 ]

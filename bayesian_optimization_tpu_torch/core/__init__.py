@@ -1,10 +1,11 @@
-"""BO engine core: data model, ask/evaluate/tell loop, BO flavors, PCABO."""
+"""BO engine core: data model, ask/evaluate/tell loop, BO flavors, PCABO, ConditionalBO."""
 from .solution import Solution
 from .base import BaseBO, BaseOptimizer
 from .bo import BO, AnnealingBO, MultiAcquisitionBO, NoisyBO, ParallelBO, SelfAdaptiveBO
-from .extensions import PCABO
+from .extensions import PCABO, ConditionalBO
 
 __all__ = [
     "Solution", "BaseOptimizer", "BaseBO",
     "BO", "ParallelBO", "AnnealingBO", "SelfAdaptiveBO", "NoisyBO", "MultiAcquisitionBO", "PCABO",
+    "ConditionalBO",
 ]

@@ -18,9 +18,12 @@ the device named by `device=` (default "cuda"); a mixed space runs the MIES
 engine. Equality/inequality constraints (eq_fun/ineq_fun) become a
 `ConstraintProgram` (optim/constraints.py) whose penalty rides inside every
 criterion; one that cannot run as tensor code moves a BFGS argmax to the
-CMA engine. Batch proposals are `ParallelBO`'s (core/bo.py): `BaseBO`
-raises for n_point > 1, as the JAX package does. Not ported yet (they
-raise): particle meshes, a NonparametricTrend prior and non-GP surrogates.
+CMA engine. The surrogate may also be the port's `RandomForest` (the
+argmax then runs MIES when "auto"), or a GP under a `NonparametricTrend`,
+whose wrapped forest is refit on the standardized targets at every tell and
+rides into the criterion. Batch proposals are `ParallelBO`'s (core/bo.py):
+`BaseBO` raises for n_point > 1, as the JAX package does. Not ported yet
+(they raise): particle meshes.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ import numpy as np
 
 from .._device import DEFAULT_DEVICE, resolve_device
 from ..models.gp import GaussianProcess
-from ..models.trend import constant_trend
+from ..models.random_forest import RandomForest
+from ..models.trend import NonparametricTrend, constant_trend
 from ..optim.argmax import AcquisitionArgmax
 from ..space import SearchSpace
 from ..utils import (
@@ -537,6 +541,11 @@ class BaseBO(BaseOptimizer):
         self.frange = self.fmax - self.fmin
 
         Xfeat = self._model_features(self.data)
+        forest = self._np_trend_forest()
+        if forest is not None:
+            # the GP fits standardized fitness, whose mean and scale move at
+            # every tell: the prior's forest is refit on the same targets
+            forest.fit(Xfeat, fitness_)
         self.model.fit(Xfeat, fitness_.reshape(-1, 1))
         y_hat = np.asarray(self.model.predict(Xfeat)).ravel()
         ss_res = float(np.sum((fitness_ - y_hat) ** 2))
@@ -544,8 +553,26 @@ class BaseBO(BaseOptimizer):
         self._r2 = 1.0 - ss_res / ss_tot
         self.logger.info(f"model r2: {self._r2:.4f}")
 
+    def _np_trend_forest(self) -> Optional[RandomForest]:
+        """The RandomForest a GP's NonparametricTrend wraps; None without
+        such a prior. Any other regressor raises: the criterion can only
+        traverse the port's forest."""
+        if not (isinstance(self.model, GaussianProcess)
+                and isinstance(self.model.mean, NonparametricTrend)):
+            return None
+        wrapped = self.model.mean.model
+        if not isinstance(wrapped, RandomForest):
+            raise ValueError(
+                "NonparametricTrend inside a BO loop must wrap a bayesian_optimization_tpu_torch "
+                "RandomForest (its traversal is what lets the acquisition criterion see the prior)"
+            )
+        return wrapped
+
     def _model_features(self, data: Solution) -> np.ndarray:
-        """Features handed to the surrogate: the masked continuous embedding."""
+        """Features handed to the surrogate: the masked continuous embedding,
+        or the raw rows for a tree model with feature_space="raw"."""
+        if getattr(self.model, "feature_space", "embedding") == "raw":
+            return data.values
         U = self.encoding.encode_unit(data.values)
         return self.encoding.unit_to_embed_np(U)
 
@@ -560,6 +587,12 @@ class BaseBO(BaseOptimizer):
             # near 10 + budget; that terminal strength holds for the whole
             # argmax (optim/__init__.py:43-50)
             out.setdefault("_penalty_t", 10.0 + float(self._argmax.max_FEs))
+        forest = self._np_trend_forest()
+        if forest is not None and forest.is_fitted:
+            # the prior's forest rides into the criterion, which then sees
+            # prior + residual, not the residual process alone
+            out["_prior_state"] = forest.posterior
+            out["_prior_depth"] = forest.config.max_depth
         return out
 
     def _fixed_units(self, fixed: Optional[dict]) -> Optional[Dict[int, float]]:

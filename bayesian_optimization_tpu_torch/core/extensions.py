@@ -1,4 +1,4 @@
-"""PCA-assisted BO.
+"""PCA-assisted BO and conditional-space BO.
 
 Counterpart of `PCABO` and `LinearTransform` in
 bayesian_optimization_tpu/core/extensions.py (ref parity:
@@ -7,8 +7,14 @@ bayes_optim/extension.py:21-208) [RaponiWB+20]: rank-weighted centering
 tell re-fits the PCA and rebuilds the reduced RealSpace and a fresh GP every
 iteration, and the acquisition carries an out-of-original-box penalty
 (reserved `_pca*` parameters of the criterion, optim/argmax.py). The GP and
-the argmax run on `device=`. `ConditionalBO` (one random-forest sub-BO per
-subspace) is not ported yet.
+the argmax run on `device=`.
+
+`ConditionalBO` (ref parity: extension.py:211-306): one sub-BO with a
+random-forest surrogate per unconditional subspace of the condition tree,
+the first asks walking the subspaces in order and later ones drawing a
+subspace from the optimizer's numpy generator, dict-based ask/tell with
+`None` for inactive variables. Each forest grows on `device=`, seeded from
+`random_seed`.
 """
 from __future__ import annotations
 
@@ -18,12 +24,14 @@ from typing import List, Optional, Union
 import numpy as np
 from scipy.stats import rankdata
 
+from .._device import DEFAULT_DEVICE
 from ..models.gp import GaussianProcess
+from ..models.random_forest import RandomForest
 from ..models.trend import constant_trend
 from ..optim.argmax import AcquisitionArgmax
 from ..space import RealSpace
 from ..utils.logging import timed_phase
-from .bo import BO
+from .bo import BO, ParallelBO
 from .solution import Solution
 
 
@@ -247,3 +255,89 @@ class PCABO(BO):
 
 class _DummyUnfitted:
     is_fitted = False
+
+
+class ConditionalBO(ParallelBO):
+    """BO over conditional spaces: one random-forest sub-BO per
+    unconditional subspace (ref parity: extension.py:211-306)."""
+
+    def __init__(self, **kwargs):
+        kwargs.setdefault("acquisition_fun", "MGFI")
+        n_point = kwargs.get("n_point", 1)
+        # ParallelBO requires n_point > 1; the asks use the caller's n_point
+        kwargs["n_point"] = max(2, n_point)
+        super().__init__(model=self._forest(kwargs), **kwargs)
+        self.n_point = n_point
+        self._create_subspace_optimizers(**kwargs)
+        self._bo_idx: List[int] = []
+
+    @staticmethod
+    def _forest(kwargs) -> RandomForest:
+        return RandomForest(feature_space="embedding", random_state=kwargs.get("random_seed"),
+                            device=kwargs.get("device", DEFAULT_DEVICE))
+
+    def _create_subspace_optimizers(self, **kwargs):
+        for key in (
+            "DoE_size", "n_point", "search_space", "eval_type", "model",
+            "acquisition_fun", "acquisition_par", "obj_fun", "parallel_obj_fun",
+        ):
+            kwargs.pop(key, None)
+        self.subspaces = self.search_space.get_unconditional_subspace()
+        self._bo = [
+            BO(search_space=cs, DoE_size=1, n_point=1, eval_type="dict",
+               model=self._forest(kwargs), acquisition_fun="MGFI", acquisition_par={"t": 2.0},
+               **kwargs)
+            for _, cs in self.subspaces
+        ]
+        self.n_subspace = len(self.subspaces)
+        self._init_gen = iter(range(self.n_subspace))
+        self._fixed_vars = [dict(d) for d, _ in self.subspaces]
+
+    def select_subspace(self, n_point: int) -> List[int]:
+        if n_point <= 0:
+            return []
+        return self._rng.choice(self.n_subspace, n_point).tolist()
+
+    @timed_phase("ask")
+    def ask(self, n_point: Optional[int] = None, fixed: Optional[dict] = None) -> List[dict]:
+        n_point = self.n_point if n_point is None else int(n_point)
+        idx: List[int] = []
+        for _ in range(n_point):
+            nxt = next(self._init_gen, None)
+            if nxt is None:
+                break
+            idx.append(nxt)
+        idx += self.select_subspace(n_point - len(idx))
+        self._bo_idx = idx
+        X = [dict(self._bo[i].ask()[0]) for i in idx]
+        for i, k in enumerate(idx):
+            X[i].update(self._fixed_vars[k])
+            X[i].update({name: None for name in set(self.var_names) - set(X[i])})
+        return X
+
+    @timed_phase("tell")
+    def tell(self, X: List[dict], func_vals, warm_start: bool = False, **kwargs):
+        if len(self._bo_idx) != len(X):
+            raise ValueError("tell must follow the matching ask")
+        for i, k in enumerate(self._bo_idx):
+            sub_names = set(self._bo[k].var_names)
+            self._bo[k].tell([{n: v for n, v in X[i].items() if n in sub_names}], [func_vals[i]])
+        rows = [[d.get(name) for name in self.var_names] for d in X]
+        start = len(self.data) if self.data is not None else 0
+        sol = Solution(
+            rows, fitness=np.asarray(func_vals, dtype=float).reshape(len(X), -1),
+            n_eval=np.ones(len(X), int), index=np.arange(start, start + len(X)),
+            var_name=self.var_names,
+        )
+        self.data = self.data + sol if self.data is not None else sol
+        self.eval_count += len(X)
+        if not warm_start:
+            self.iter_count += 1
+            self.hist_f.append(self.xopt.fitness.ravel().copy())
+
+    def _to_pheno(self, X: Solution):
+        return [dict(zip(self.var_names, row)) for row in X.values]
+
+    def step(self):
+        X = self.ask()
+        self.tell(X, [self.obj_fun(x) for x in X])

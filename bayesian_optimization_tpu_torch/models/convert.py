@@ -8,7 +8,8 @@ fitted -- how the parity tests hold the two packages to each other; a
 stacked ensemble state too, and in float64 where a test needs it. The same
 holds for the CMA chains' `CMAState` and MIES's `MIESState`, whose JAX PRNG
 key gives way to a torch.Generator, and for what an HMC/NUTS fit carries
-into its next refit.
+into its next refit. A fitted JAX `RandomForest`'s `RFState` loads the same
+way (`rf_state_from_numpy`), so the port traverses exactly its forest.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 from ..optim.cma import CMAState
 from ..optim.mies import MIESState
 from .likelihood import GPConfig, PosteriorState
+from .random_forest import RFConfig, RFState
 
 
 def posterior_state_from_numpy(fields: Mapping[str, np.ndarray], device,
@@ -80,3 +82,21 @@ def mies_state_from_numpy(fields: Mapping[str, np.ndarray], gen: torch.Generator
     """MIESState on `device` (float32) from the numpy fields of the JAX
     package's MIESState; its `key` is ignored, `gen` draws from then on."""
     return _es_state(MIESState, fields, gen, device)
+
+
+def rf_state_from_numpy(fields: Mapping[str, np.ndarray], max_depth: int, device,
+                        dtype=torch.float32):
+    """(RFState, RFConfig) on `device` from the numpy fields of the JAX
+    package's RFState and its max_depth: int32 feature/left/right, the
+    threshold as given (float32 there), the values in `dtype`."""
+    missing = set(RFState._fields) - set(fields)
+    if missing:
+        raise ValueError(f"RFState fields missing: {sorted(missing)}")
+
+    def arr(k):
+        return torch.as_tensor(np.array(fields[k]), device=device)
+
+    state = RFState(feature=arr("feature").to(torch.int32), threshold=arr("threshold"),
+                    left=arr("left").to(torch.int32), right=arr("right").to(torch.int32),
+                    value=arr("value").to(dtype))
+    return state, RFConfig(max_depth=int(max_depth))

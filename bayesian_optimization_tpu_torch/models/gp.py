@@ -16,8 +16,17 @@ and the data subsets come from numpy's `default_rng(random_state)`, drawn in
 the same order as the JAX package, so both packages start from identical
 points.
 
-`precompile` (TPU compile warming) has no counterpart; the float64 option
-runs on the CPU only.
+With a `NonparametricTrend` prior the GP fits the residual y - m(X) under a
+fixed zero constant trend and adds m back in `predict`; `predict_torch`
+adds the prior's forest traversal on the device. dtype="f64" runs the plain
+torch stack on any device, the card included: the JAX package's float64
+likewise takes its non-Pallas path, and the port chooses it by dtype
+(models/kernels.py, ops/linalg.py). `gradient` and `Hessian` differentiate
+the posterior mean and MSE at a point by autograd; `Hessian` runs its
+second derivative through the kernels' plain twins (the Matern backward
+kernel has no derivative of its own).
+
+`precompile` (TPU compile warming) has no counterpart.
 """
 from __future__ import annotations
 
@@ -40,7 +49,8 @@ from .likelihood import (
     posterior_state,
     predict_gp,
 )
-from .trend import TRENDS, BasisExpansionTrend, constant_trend
+from .random_forest import RandomForest, rf_predict
+from .trend import TRENDS, BasisExpansionTrend, NonparametricTrend, constant_trend
 
 
 def _mle_ladder_plan(n, n_pad, n_restarts, max_iter, multi_fidelity):
@@ -129,11 +139,9 @@ class GaussianProcess:
         if isinstance(dtype, str):
             dtype = {"f32": torch.float32, "float32": torch.float32,
                      "f64": torch.float64, "float64": torch.float64}[dtype]
-        # f64 runs the plain-torch likelihood/posterior stack, as the JAX
-        # package's f64 runs its pure-XLA path; the card's kernels are f32
-        # only, so on the card the option raises
-        if dtype == torch.float64 and self.device.type != "cpu":
-            raise NotImplementedError("the float64 GP option is not ported to the card")
+        # f64 runs the plain-torch likelihood/posterior stack on any device,
+        # as the JAX package's f64 runs its pure-XLA path (the routing is by
+        # dtype, in models/kernels.py and ops/linalg.py)
         self.dtype = dtype
         if optimizer not in ("BFGS", "CMA", "HMC", "NUTS", "VI"):
             raise ValueError(
@@ -191,7 +199,11 @@ class GaussianProcess:
                 isinstance(mean, BasisExpansionTrend) and mean.estimate_coefficients
             )
         n_basis = mean.n_basis if isinstance(mean, BasisExpansionTrend) else 1
-        trend_name = {cls: name for name, cls in TRENDS.items()}.get(type(mean), "custom")
+        if isinstance(mean, NonparametricTrend):
+            # the residual GP: y - m(X) under a fixed zero constant trend
+            trend_name = "constant"
+        else:
+            trend_name = {cls: name for name, cls in TRENDS.items()}.get(type(mean), "custom")
         return GPConfig(
             kernel=self.corr_type if isinstance(self._corr, str) else self._corr,
             mode=self.estimation_mode,
@@ -207,6 +219,12 @@ class GaussianProcess:
         if isinstance(self.mean, BasisExpansionTrend):
             return self.mean.F(X)
         return torch.ones_like(X[:, :1])
+
+    def _prior_mean(self, X: np.ndarray) -> Optional[np.ndarray]:
+        """m(X) of a nonparametric prior trend, (n, m); None otherwise."""
+        if isinstance(self.mean, NonparametricTrend):
+            return self.mean(X).double().numpy().reshape(X.shape[0], -1)
+        return None
 
     def _hyper_bounds(self, dim: int, y: np.ndarray) -> np.ndarray:
         """log10-space bounds rows [lo, hi]."""
@@ -415,6 +433,9 @@ class GaussianProcess:
         m = y.shape[1]
         if self.mean is None:
             self.mean = constant_trend(dim)
+        prior = self._prior_mean(X)
+        if prior is not None:  # the residual GP
+            y = y - prior
         if self.thetaL is None or self.thetaU is None:
             raise ValueError("thetaL/thetaU are required for fitting")
         if len(self.thetaL) == 1 and dim > 1:
@@ -567,7 +588,11 @@ class GaussianProcess:
         Xj = self._tensor(Xq)
         with torch.no_grad():
             mu, mse = predict_gp(self._state, Xj, self._trend_F(Xj), self._config_cache, eval_mse)
-        return mu[:nq], (mse[:nq] if mse is not None else None)
+        mu = mu[:nq]
+        prior = self._prior_mean(X)  # the residual GP: add the prior mean back
+        if prior is not None:
+            mu = mu + torch.as_tensor(prior, dtype=mu.dtype, device=mu.device)
+        return mu, (mse[:nq] if mse is not None else None)
 
     def predict(self, X, eval_MSE: bool = False):
         """BLUP mean (and MSE) at X: (n_eval, n_targets), squeezed to
@@ -588,6 +613,46 @@ class GaussianProcess:
             return mu, mse
         return mu
 
+    def _moment(self, x: torch.Tensor, of: str, config: GPConfig) -> torch.Tensor:
+        """The posterior mean (of="mean") or MSE ("mse") at one point x (dim,),
+        summed over targets, without a nonparametric prior (as the JAX
+        package's gradient and Hessian)."""
+        Xq = x.reshape(1, -1)
+        mu, mse = predict_gp(self._state, Xq, self._trend_F(Xq), config, of == "mse")
+        return (mu if of == "mean" else mse).sum()
+
+    def gradient(self, x):
+        """Gradients (dim, 1) of the posterior mean and of the MSE at a single
+        point, by autograd: in float32 on the card through the Matern
+        backward kernel."""
+        x = self._tensor(np.asarray(x, dtype=float).ravel())
+        grads = []
+        for of in ("mean", "mse"):
+            xx = x.clone().requires_grad_(True)
+            (g,) = torch.autograd.grad(self._moment(xx, of, self._config_cache), xx)
+            grads.append(g.cpu().double().numpy().reshape(-1, 1))
+        return grads[0], grads[1]
+
+    def Hessian(self, x, of: str = "mean"):
+        """Hessian (dim, dim) of the posterior mean, or with of="mse" of the
+        posterior variance, at a single point, by double backward: in
+        float32 on the card the Matern/RBF cross-covariance runs its forward
+        and backward kernels and the second-derivative kernel
+        (`matern_bwd2_fused`). (A generic-nu Matern's host Bessel derivative
+        has no derivative of its own, and raises.)"""
+        if of not in ("mean", "mse"):
+            raise ValueError("of must be 'mean' or 'mse'")
+        x = np.asarray(x, dtype=float)
+        if x.ndim == 2:
+            if x.shape[0] != 1:
+                raise ValueError("x must be a single point")
+            x = x.ravel()
+        if x.shape[0] != self._dim:
+            raise ValueError("x does not have the right size")
+        H = torch.autograd.functional.hessian(lambda xx: self._moment(xx, of, self._config_cache),
+                                              self._tensor(x))
+        return H.cpu().double().numpy()
+
     # -- device-side handles for the acquisition argmax -------------------
     @property
     def posterior(self) -> PosteriorState:
@@ -601,5 +666,19 @@ class GaussianProcess:
 
     def predict_torch(self, Xq: torch.Tensor, eval_mse: bool = True):
         """predict on device tensors, differentiable in Xq:
-        (Nq, dim) -> (mu[Nq, m], mse[Nq, m]); an ensemble's mixture."""
-        return predict_gp(self._state, Xq, self._trend_F(Xq), self._config_cache, eval_mse)
+        (Nq, dim) -> (mu[Nq, m], mse[Nq, m]); an ensemble's mixture. A
+        NonparametricTrend prior's forest is traversed here and added to
+        the mean; a prior that is not a fitted port RandomForest raises."""
+        mu, mse = predict_gp(self._state, Xq, self._trend_F(Xq), self._config_cache, eval_mse)
+        if isinstance(self.mean, NonparametricTrend):
+            wrapped = self.mean.model
+            if not (isinstance(wrapped, RandomForest) and wrapped.is_fitted):
+                raise ValueError(
+                    "predict_torch with a NonparametricTrend requires the prior to wrap a "
+                    "fitted bayesian_optimization_tpu_torch RandomForest (its traversal runs "
+                    "on device tensors); host-only regressors work through .predict() but "
+                    "cannot run inside the acquisition criterion"
+                )
+            pm, _ = rf_predict(wrapped.posterior, Xq, wrapped.config)
+            mu = mu + pm.reshape(mu.shape)
+        return mu, mse

@@ -41,6 +41,8 @@ _SIGNATURES = {
     # theta, X, Y, G, scratch, dtheta, dX, dY, B, N, M, D, nu_code, sym, same,
     # need_t, need_x, need_y, stream
     "botorch_matern_bwd": ((_P,) * 8 + (_I,) * 10 + (_P,), _I),
+    # theta, X, Y, G, V, gG, gX, B, N, M, D, nu_code, sym, stream
+    "botorch_matern_bwd2": ((_P,) * 7 + (_I,) * 6 + (_P,), _I),
     # ws, dinv, piv, Bt, rows, n, T, stream
     "botorch_whiten": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
     "botorch_error_string": ((_I,), ctypes.c_char_p),

@@ -7,15 +7,20 @@ has three parts here:
   of csrc/ on a CUDA float32 tensor, and raises on any other CUDA input or a
   failed build or launch. A tensor on the CPU goes to the plain twin; that is
   the only case the twin runs in place of the kernel. There is no fallback.
-  `matern_fused`'s backward is a kernel too (`matern_bwd_fused`);
-- a plain PyTorch twin (`matern_plain`, `matern_bwd_plain`, `whiten_plain`)
-  of the same function, which defines the semantics. The CPU tests hold it
+  `matern_fused`'s backward is a kernel too (`matern_bwd_fused`), and so is
+  that backward's own backward in G and X (`matern_bwd2_fused`), which a
+  Hessian in the cross-covariance's first argument runs;
+- a plain PyTorch twin (`matern_plain`, `matern_bwd_plain`,
+  `matern_bwd2_plain`, `whiten_plain`) of the same function, which defines
+  the semantics. The CPU tests hold it
   against the JAX package, and `chip_smoke.py` holds the kernel against it
-  on the card;
+  on the card. `matern_twin` runs the Matern twins with their autograd on
+  any device (the float64 route of models/kernels.py);
 - a launch counter, an int attribute on the wrapper (`matern_fused.launches`,
   `whiten_fused.launches`), raised by one where the kernel is launched and
   nowhere else; `matern_fused.bwd_launches` counts the backward kernel's
-  calls (two launches each).
+  calls (two launches each), `matern_fused.bwd2_launches` the second
+  derivative's.
 
 The kernels are built at first use (ops/_build.py); nothing is compiled or
 loaded when this module is imported.
@@ -226,20 +231,138 @@ def matern_bwd_fused(theta2, X, Y, G, code: int, sym: bool, same: bool, needs):
     return g_theta, g_x, g_y
 
 
-class _MaternFn(torch.autograd.Function):
-    """Forward: the CUDA kernel, backward: the backward kernel; for CPU
-    tensors, the twins of both (the Pallas kernel had no backward)."""
+def _d2k_dr2(r2: torch.Tensor, code: int):
+    """(dK/dr2, d2K/dr2^2) of the map, computed from r2 alone, both zero
+    where r2 <= 1e-30 for Matern (as `_dk_dr2`)."""
+    if code == 0:
+        k = torch.exp(-r2)
+        return -k, k
+    live = r2 > 1e-30
+    r = torch.sqrt(r2.clamp_min(1e-30))
+    if code == 1:
+        e = torch.exp(-r)
+        h, h2 = -e / (2.0 * r), e * (1.0 + r) / (4.0 * r2.clamp_min(1e-30) * r)
+    elif code == 3:
+        e = torch.exp(-math.sqrt(3.0) * r)
+        h, h2 = -1.5 * e, (0.75 * math.sqrt(3.0)) * e / r
+    else:
+        s = math.sqrt(5.0) * r
+        e = torch.exp(-s)
+        h, h2 = -(5.0 / 6.0) * (1.0 + s) * e, (25.0 / 12.0) * e
+    zero = torch.zeros_like(h)
+    return torch.where(live, h, zero), torch.where(live, h2, zero)
+
+
+def matern_bwd2_plain(theta2, X, Y, G, V, code: int, sym: bool, needs):
+    """Plain twin of the second-derivative kernel: the backward's own
+    backward in G and X. For g_x = sum_{b,j} G_bij dK_bij/dX_i (the
+    backward's X gradient) and V = dL/dg_x (N, D), returns (gG (B, N, M),
+    gX (N, D)), each None unless `needs` (G, X) asks for it:
+        gG[b, i, j] = 2 h c,   c = sum_l w_bl d_ijl V_il,
+        gX[i, k]    = sum_b w_bk sum_j G_bij (2 h V_ik + 4 h2 c d_ijk),
+    with d = x_i - y_j, w = max(theta, 0), h and h2 the map's first and
+    second derivatives in r2 (zero on the unit diagonal with sym). r2 in the
+    kernel's direct form."""
+    w = theta2.clamp_min(0.0)
+    h, h2 = _d2k_dr2(_sq_dist_plain(theta2, X, Y), code)
+    if sym:
+        eye = torch.eye(X.shape[0], Y.shape[0], dtype=torch.bool, device=X.device)
+        h, h2 = (torch.where(eye, torch.zeros_like(t), t) for t in (h, h2))
+    diffs = [X[:, d, None] - Y[None, :, d] for d in range(X.shape[1])]
+    c = sum(w[:, d, None, None] * (diff * V[:, d, None])[None] for d, diff in enumerate(diffs))
+    gG = 2.0 * h * c if needs[0] else None
+    gX = None
+    if needs[1]:
+        P, Q = (G * h).sum(-1), G * h2 * c  # (B, N), (B, N, M)
+        gX = torch.stack([(w[:, d, None] * (2.0 * V[None, :, d] * P + 4.0 * (Q * diff[None]).sum(-1))).sum(0)
+                          for d, diff in enumerate(diffs)], -1)
+    return gG, gX
+
+
+def matern_bwd2_fused(theta2, X, Y, G, V, code: int, sym: bool, needs):
+    """The second-derivative kernel on CUDA tensors: (gG, gX) as
+    `matern_bwd2_plain` defines them, in one launch. Raises on a CPU or
+    non-float32 tensor."""
+    G, V = G.contiguous(), V.contiguous()
+    _require_cuda_f32("matern_fused second derivative", theta=theta2, X=X, Y=Y, G=G, V=V)
+    B, D = theta2.shape
+    N, M = X.shape[0], Y.shape[0]
+    if not (theta2.is_contiguous() and X.is_contiguous() and Y.is_contiguous()):
+        raise ValueError("matern_fused second derivative: theta, X and Y must be contiguous")
+    if G.shape != (B, N, M) or V.shape != (N, D):
+        raise ValueError(f"matern_fused second derivative: G {tuple(G.shape)} and V "
+                         f"{tuple(V.shape)}, expected {(B, N, M)} and {(N, D)}")
+    if 4 * (B + 2) * D > 48 * 1024:  # w and the row of X and of V, in shared memory
+        raise ValueError(f"matern_fused second derivative: theta {(B, D)} exceeds the kernel's "
+                         "48 KB of shared memory")
+    lib = _build.load_library()
+
+    def out(flag, *shape):
+        return torch.empty(shape, dtype=torch.float32, device=X.device) if flag else None
+
+    gG, gX = out(needs[0], B, N, M), out(needs[1], N, D)
+    err = lib.botorch_matern_bwd2(
+        theta2.data_ptr(), X.data_ptr(), Y.data_ptr(), G.data_ptr(), V.data_ptr(),
+        *(0 if t is None else t.data_ptr() for t in (gG, gX)),
+        B, N, M, D, code, int(sym), _stream_ptr(X),
+    )
+    _build.check(err, "matern_fused second derivative")
+    matern_fused.bwd2_launches += 1
+    return gG, gX
+
+
+class _MaternBwdFn(torch.autograd.Function):
+    """`_MaternFn`'s backward as a function of its own, so that it can be
+    differentiated: forward the backward kernel (with `plain`, its twin),
+    backward the second-derivative kernel (its twin) for the derivative of
+    g_x in G and X, the one a Hessian in a cross-covariance's first
+    argument needs (GaussianProcess.Hessian). A second derivative through
+    theta or Y, or of K(X, X) in X, has no kernel and raises."""
 
     @staticmethod
-    def forward(ctx, theta2, X, Y, code, sym, same):
+    def forward(ctx, G, theta2, X, Y, K, code, sym, same, needs, plain):
         with torch.no_grad():
-            if X.device.type == "cpu":
+            if plain:
+                grads = matern_bwd_plain(theta2, X, Y, K, G, code, sym, same, needs)
+            else:
+                grads = matern_bwd_fused(theta2, X, Y, G, code, sym, same, needs)
+        ctx.save_for_backward(G, theta2, X, Y)
+        ctx.code, ctx.sym, ctx.same, ctx.plain = code, sym, same, plain
+        ctx.set_materialize_grads(False)
+        return grads
+
+    @staticmethod
+    def backward(ctx, gg_theta, gg_x, gg_y):
+        G, theta2, X, Y = ctx.saved_tensors
+        need_g, need_t, need_x, need_y = ctx.needs_input_grad[:4]
+        if gg_theta is not None or gg_y is not None or ctx.same or need_t or need_y:
+            raise NotImplementedError(
+                "matern_fused: a second derivative through theta or Y, or of K(X, X), has no "
+                "kernel; the second-derivative kernel differentiates the X gradient of a "
+                "cross-covariance in G and X")
+        gG = gX = None
+        if gg_x is not None and (need_g or need_x):
+            fn = matern_bwd2_plain if ctx.plain else matern_bwd2_fused
+            gG, gX = fn(theta2, X, Y, G, gg_x, ctx.code, ctx.sym, (need_g, need_x))
+        return gG, None, gX, None, None, None, None, None, None, None
+
+
+class _MaternFn(torch.autograd.Function):
+    """Forward: the CUDA kernel, backward: the backward kernel, itself
+    differentiable in G and X through the second-derivative kernel
+    (`_MaternBwdFn`); with `plain`, the twins of all three (the Pallas
+    kernel had no derivative)."""
+
+    @staticmethod
+    def forward(ctx, theta2, X, Y, code, sym, same, plain):
+        with torch.no_grad():
+            if plain:
                 K = _matern_plain_batched(theta2, X, Y, code, sym)
                 ctx.save_for_backward(theta2, X, Y, K)  # the twin reads K (RBF)
             else:
                 K = _launch_matern(theta2, X, Y, code, sym)
                 ctx.save_for_backward(theta2, X, Y)  # the kernel recomputes r2
-        ctx.code, ctx.sym, ctx.same = code, sym, same
+        ctx.code, ctx.sym, ctx.same, ctx.plain = code, sym, same, plain
         return K
 
     @staticmethod
@@ -247,12 +370,22 @@ class _MaternFn(torch.autograd.Function):
         theta2, X, Y, *K = ctx.saved_tensors
         needs = ctx.needs_input_grad[:3]
         if not any(needs):
-            grads = (None, None, None)
-        elif X.device.type == "cpu":
-            grads = matern_bwd_plain(theta2, X, Y, K[0], G, ctx.code, ctx.sym, ctx.same, needs)
-        else:
-            grads = matern_bwd_fused(theta2, X, Y, G, ctx.code, ctx.sym, ctx.same, needs)
-        return (*grads, None, None, None)
+            return None, None, None, None, None, None, None
+        grads = _MaternBwdFn.apply(G, theta2, X, Y, K[0] if K else None, ctx.code, ctx.sym,
+                                   ctx.same, needs, ctx.plain)
+        return (*grads, None, None, None, None)
+
+
+def _matern_apply(theta, X, Y, nu, sym, plain: bool) -> torch.Tensor:
+    if sym is None:
+        sym = Y is None
+    squeeze = torch.as_tensor(theta).ndim < 2
+    theta2 = _theta_2d(theta, X.shape[1]).to(X.dtype)
+    if X.device.type == "cuda":
+        theta2 = theta2.contiguous()
+    Yv = X if Y is None else Y
+    K = _MaternFn.apply(theta2, X, Yv, _nu_code(nu), bool(sym), Y is None, plain)
+    return K.squeeze(0) if squeeze else K  # a view: its backward launches nothing
 
 
 def matern_fused(theta, X, Y=None, nu: float = 1.5, sym=None) -> torch.Tensor:
@@ -261,20 +394,22 @@ def matern_fused(theta, X, Y=None, nu: float = 1.5, sym=None) -> torch.Tensor:
     theta (D,) -> K (N, M); theta (B, D) -> K (B, N, M), X and Y shared by
     all B lanes. Any N and M (the ragged edge is masked in the kernel).
     sym (default: Y is None) sets an exact unit diagonal. Differentiable in
-    theta, X and Y."""
-    if sym is None:
-        sym = Y is None
-    squeeze = torch.as_tensor(theta).ndim < 2
-    theta2 = _theta_2d(theta, X.shape[1]).to(X.dtype)
-    if X.device.type == "cuda":
-        theta2 = theta2.contiguous()
-    Yv = X if Y is None else Y
-    K = _MaternFn.apply(theta2, X, Yv, _nu_code(nu), bool(sym), Y is None)
-    return K.squeeze(0) if squeeze else K  # a view: its backward launches nothing
+    theta, X and Y; twice in X, through the second-derivative kernel, where
+    Y is given and neither theta nor Y needs a gradient."""
+    return _matern_apply(theta, X, Y, nu, sym, plain=X.device.type == "cpu")
+
+
+def matern_twin(theta, X, Y=None, nu: float = 1.5, sym=None) -> torch.Tensor:
+    """`matern_fused`'s function through its twins on any device and dtype:
+    forward `matern_plain`, backward `matern_bwd_plain` (its own backward
+    `matern_bwd2_plain`), what a CPU tensor
+    runs. Launches nothing; the float64 route of models/kernels.py."""
+    return _matern_apply(theta, X, Y, nu, sym, plain=True)
 
 
 matern_fused.launches = 0
 matern_fused.bwd_launches = 0
+matern_fused.bwd2_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -393,4 +528,5 @@ whiten_fused.launches = 0
 def reset_launch_counts() -> None:
     matern_fused.launches = 0
     matern_fused.bwd_launches = 0
+    matern_fused.bwd2_launches = 0
     whiten_fused.launches = 0

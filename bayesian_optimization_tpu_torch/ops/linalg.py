@@ -25,6 +25,14 @@ of the gradient, where the float32 factor's own error is 1e-4 to 1e-1
 (tools/whiten_bwd_variants.py). The TPU-only code-size workarounds of the
 forward (the XLA column loops) have no counterpart.
 
+float64 never reaches the kernel: `_whiten_parts` hands it to the plain twin
+`whiten_plain` (torch's Cholesky and triangular solves), on the card as on
+the CPU. This is the JAX package's own routing, not a fallback: its float64
+takes the non-Pallas path by dtype (`_use_fused_whiten`,
+`_use_hybrid_whiten`), as its Pallas kernel is float32 only; and
+`whiten_fused` raises on a float64 CUDA tensor, so a float32 call always
+reaches the kernel.
+
 All functions take a leading batch axis (one matrix per restart lane) or
 none. `min_pivot`/`piv` is the smallest raw pivot before the 1e-12 clamp:
 piv <= ~0 (or NaN) means the clamped factorisation is wrong, and the
@@ -36,7 +44,7 @@ import math
 
 import torch
 
-from .hopper_kernels import as_batch, whiten_fused
+from .hopper_kernels import as_batch, whiten_fused, whiten_plain
 
 SUPER = 1024  # width of the hybrid factorisation's diagonal blocks
 
@@ -76,7 +84,10 @@ def _factor_hybrid(R: torch.Tensor, B: torch.Tensor, super_block: int = SUPER):
 
 
 def _whiten_parts(R: torch.Tensor, B: torch.Tensor):
-    """(d, W, piv, L, Dinv) for batched R (Bt, n, n), B (Bt, n, mb)."""
+    """(d, W, piv, L, Dinv) for batched R (Bt, n, n), B (Bt, n, mb). float64
+    takes the plain twin, chosen here by dtype (see the module docstring)."""
+    if R.dtype == torch.float64:
+        return whiten_plain(R, B)
     if R.shape[-1] > SUPER:
         L, Dinv, piv, W = _factor_hybrid(R, B, SUPER)
         return L.diagonal(dim1=-2, dim2=-1), W, piv, L, Dinv
@@ -187,3 +198,39 @@ def chol_inv_whiten(R: torch.Tensor, B: torch.Tensor):
     if squeeze:
         return L[0], L_inv[0], W[0], piv[0]
     return L, L_inv, W, piv
+
+
+class _CholAndInv(torch.autograd.Function):
+    """(L, L^-1, piv) of batched R with the JAX package's GEMM-only VJP
+    (bayesian_optimization_tpu/ops/linalg.py::_bwd)."""
+
+    @staticmethod
+    def forward(ctx, R):
+        # one zero right-hand side: the factorisation's launch sequence
+        # always solves at least one column
+        L, L_inv, _W, piv = chol_inv_whiten(R, R.new_zeros(R.shape[0], R.shape[-1], 1))
+        ctx.save_for_backward(L, L_inv)
+        ctx.mark_non_differentiable(piv)
+        return L, L_inv, piv
+
+    @staticmethod
+    def backward(ctx, Lb, Lib, _pivb):
+        L, Li = ctx.saved_tensors
+        Lb = torch.zeros_like(L) if Lb is None else Lb
+        Lb_total = torch.tril(Lb)
+        if Lib is not None:  # d(L^-1) = -L^-1 dL L^-1
+            Lb_total = Lb_total - torch.tril(Li.mT @ Lib @ Li.mT)
+        M = L.mT @ Lb_total
+        Phi = torch.tril(M) - 0.5 * torch.diag_embed(M.diagonal(dim1=-2, dim2=-1))
+        Rb = Li.mT @ Phi @ Li
+        return 0.5 * (Rb + Rb.mT)
+
+
+def chol_and_inv(R: torch.Tensor):
+    """(L, L^-1, min_pivot) of SPD R (n, n) or batched (Bt, n, n), n <= 128
+    or n % 128 == 0, differentiable in R through L and L^-1 (piv is a
+    diagnostic, <= ~0 when the clamped factorisation is wrong). float32 on
+    the card launches `whiten_fused`."""
+    squeeze = R.ndim == 2
+    L, L_inv, piv = _CholAndInv.apply(R[None] if squeeze else R)
+    return (L[0], L_inv[0], piv[0]) if squeeze else (L, L_inv, piv)

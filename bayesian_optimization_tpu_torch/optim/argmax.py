@@ -33,9 +33,13 @@ feasible final lane of each criterion's population (`_select_feasible`),
 as the JAX package does. Parameters whose names start with "_" are not
 acquisition parameters and are shared by every lane: the penalty's time
 `_penalty_t` and PCABO's out-of-box penalty (`_pca_C`, `_pca_offset`,
-`_box_lo`, `_box_hi`, `_red_lo`, `_red_hi`). "GEI<g>" names generalized EI
-of order g. Not ported yet (they raise or are refused): meshes, a
-random-forest prior, EHVI and qEHVI.
+`_box_lo`, `_box_hi`, `_red_lo`, `_red_hi`), and a NonparametricTrend's
+forest (`_prior_state`, an RFState, and `_prior_depth`), whose traversal is
+added to the residual GP's mean. "GEI<g>" names generalized EI of order g.
+A posterior may also be a random forest's (`RFState` with its `RFConfig`):
+the criterion then takes the forest's mean and across-tree variance, and
+the engines that need no gradient (CMA, SMC, MIES) maximize it. Not ported
+yet (they raise or are refused): meshes, EHVI and qEHVI.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ import torch
 
 from .._device import DEFAULT_DEVICE, resolve_device
 from ..models.likelihood import GPConfig, PosteriorState, predict_gp, trend_basis
+from ..models.random_forest import RFConfig, rf_predict
 from ..ops.acquisition import acquisition_fn, gei
 from ..ops.optimize import maximize_restarts
 from .cma import best_per_group, run_cma
@@ -70,6 +75,7 @@ def _inject_seeds(x0: torch.Tensor, x0_seed) -> torch.Tensor:
 
 
 _PCA_KEYS = ("_pca_C", "_pca_offset", "_box_lo", "_box_hi", "_red_lo", "_red_hi")
+_PRIOR_KEYS = ("_prior_state", "_prior_depth")
 
 
 def make_unit_criterion(
@@ -96,6 +102,8 @@ def make_unit_criterion(
     reserved = {k: v for k, v in acq_params.items() if k.startswith("_")}
     pca = {k: reserved[k] for k in _PCA_KEYS if k in reserved}
     penalty_t = reserved.get("_penalty_t", 10.0)
+    prior_state = reserved.get("_prior_state")
+    prior_config = None if prior_state is None else RFConfig(max_depth=int(reserved["_prior_depth"]))
     acq_params = {k: v for k, v in acq_params.items() if not k.startswith("_")}
     if acq_name.startswith("GEI"):
         # the improvement order rides in the name ("GEI3"), as in the JAX package
@@ -119,10 +127,19 @@ def make_unit_criterion(
         x = z @ pca["_pca_C"] + pca["_pca_offset"]
         return -((pca["_box_lo"] - x).clamp_min(0.0).sum(1) + (x - pca["_box_hi"]).clamp_min(0.0).sum(1))
 
+    def moments(E: torch.Tensor):
+        """(mu, var) (P, m) at embedded points: the GP's, plus a
+        NonparametricTrend's forest mean; or a random forest's."""
+        if isinstance(config, RFConfig):
+            return rf_predict(state, E, config)
+        mu, var = predict_gp(state, E, trend_basis(config, E), config, True)
+        if prior_state is not None:  # the residual GP plus its prior's forest
+            mu = mu + rf_predict(prior_state, E, prior_config)[0].reshape(mu.shape)
+        return mu, var
+
     def crit(U: torch.Tensor, idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         Uf = U if fixed_mask is None else torch.where(fixed_mask[None, :] > 0, fixed_vals[None, :], U)
-        E = encoding.unit_to_embed(Uf)
-        mu, var = predict_gp(state, E, trend_basis(config, E), config, True)
+        mu, var = moments(encoding.unit_to_embed(Uf))
         mu0, sd0 = mu[:, 0], torch.sqrt(var[:, 0].clamp_min(0.0))
         if not minimize:
             mu0 = -mu0
@@ -285,6 +302,9 @@ class AcquisitionArgmax:
         crit = make_unit_criterion(self.encoding, state, config, acq_name, params, minimize,
                                    fixed_mask, fixed_vals, cons)
         if self.method == "BFGS":
+            if isinstance(config, RFConfig):
+                raise ValueError("the BFGS engine needs a gradient, and a random forest's "
+                                 "criterion is piecewise constant: use MIES, CMA or SMC")
             us, vals = _bfgs_argmax(crit, self._pool(q, self.n_restart, x0_seed), q, self.max_iter,
                                     cons)
         elif self.method == "SMC":
@@ -306,6 +326,8 @@ class AcquisitionArgmax:
         per-lane vector, each value repeated for its criterion's `reps`
         lanes. Reserved "_" parameters are shared by every lane, as they are."""
         def one(k, v):
+            if k in _PRIOR_KEYS:  # a prior's forest passes unchanged
+                return v
             t = torch.as_tensor(np.asarray(v, dtype=np.float64), dtype=self.encoding.dtype)
             return (t.repeat_interleave(reps) if t.ndim and not k.startswith("_") else t).to(self.device)
 
@@ -346,7 +368,8 @@ class AcquisitionArgmax:
         if any(set(p) != keys for p in acq_params_list):
             raise ValueError("all parameter dicts must share the same keys")
         shared = {k: acq_params_list[0][k] for k in keys if k.startswith("_")}
-        if any(not np.array_equal(np.asarray(p[k]), np.asarray(v))
+        if any(p[k] is not v and (k == "_prior_state" or not np.array_equal(np.asarray(p[k]),
+                                                                             np.asarray(v)))
                for p in acq_params_list for k, v in shared.items()):
             raise ValueError("reserved '_' parameters must be the same for every criterion")
         P = {"BFGS": self.n_restart}.get(self.method, self.n_chains)

@@ -19,7 +19,8 @@ non-zero, and no phase's exception is caught:
      the mixed space's D = 6 training matrices among them) with its share
      of the bound, and its backward kernel against the torch backward it
      replaces (error against the twin in float64, bit-identical repeats,
-     device ms of both);
+     device ms of both), and its second-derivative kernel against its twin
+     in float64 at a Hessian's shapes;
      whiten_fused's device time split by kernel name into its diagonal,
      panel and trailing kernels at (2, 1024), (10, 1024) and the hybrid
      panel; a failed lane (indefinite, NaN) flagged by its pivot; then the
@@ -79,11 +80,31 @@ non-zero, and no phase's exception is caught:
      config 5 (PCABO, 20-D ellipsoid) end to end, inside the box and below
      its DoE best, and one BO iteration with GEI (g=2), its criterion
      against the CPU path's;
-each of phases 4, 7-12's paths zeroes the launch counters just before it
+ 13. the tree-surrogate and conditional paths and the rest of the GP: (a)
+     fits at n=1000, d=5 with the absolute-exponential kernel and Matern
+     nu=7/2, each likelihood at 4 lanes against the CPU path (1e-4); (b) the
+     float64 GP at n=1000 on the card (no kernel launched; its NLL at its
+     optimum against the CPU float64 path, 1e-8) beside phase 4's float32
+     log-likelihood; (c) gradient and Hessian of phase 4's GP at 5 points
+     against the CPU path in float64, each Hessian through the
+     second-derivative kernel once per dimension; (d) chol_and_inv at n=1024 against
+     its CPU twin, with its device time; (e) a 100-tree RandomForest grown
+     on phase 8's 1000 mixed observations (wall, nodes, depth), its
+     traversal against the CPU's, and an MGFI MIES argmax on it; (f) a GP
+     under a NonparametricTrend at n=1000: forest, residual fit and the
+     BFGS EI argmax with the forest in the criterion (plugin at y's 10th
+     percentile), every kernel launched, the winner better than every
+     start and away from them, its criterion against the CPU path's; (g)
+     ConditionalBO (30 evaluations) and BO with a RandomForest on parity
+     config 4 (40 evaluations), regret below the DoE's;
+each of phases 4, 7-13's paths zeroes the launch counters just before it
 and reads them just after, and fails if a kernel of its path did not
-launch (the Matern forward on every path, its backward on the batched
-BFGS, the mixed fit, the samplers and every phase-12 path, the
-factorisation on the fits). Then the kernels' JSON line
+launch (the Matern forward on every GP path, its backward on the batched
+BFGS, the mixed fit, the samplers, every phase-12 path, the derivatives
+and the NonparametricTrend path, its second derivative on the Hessians,
+the factorisation on the fits), or, on
+the float64 fit, if any kernel launched. The forest's paths run no
+hand-written kernel: their counts are printed. Then the kernels' JSON line
 (with the batch and engine paths' shapes and every path's launches), the
 card's name and power limit, and last the result line {"ok": true,
 "device": {...}}.
@@ -105,22 +126,26 @@ import torch
 from torch.autograd import DeviceType
 
 from bayesian_optimization_tpu_torch import (
-    BO, PCABO, AcquisitionArgmax, ConstraintProgram, DiscreteSpace, GaussianProcess, IntegerSpace,
-    ParallelBO, RealSpace, constant_trend, fmin, require_cuda,
+    BO, PCABO, AcquisitionArgmax, ConditionalBO, ConstraintProgram, DiscreteSpace, GaussianProcess,
+    IntegerSpace, NonparametricTrend, ParallelBO, RandomForest, RealSpace, SearchSpace,
+    constant_trend, fmin, require_cuda,
 )
 from bayesian_optimization_tpu_torch.core.bo import _sample_t
 from bayesian_optimization_tpu_torch.models import effective_sample_size
 from bayesian_optimization_tpu_torch.models import gp as gp_module
 from bayesian_optimization_tpu_torch.models.hmc import Draws, _Chains, _nuts_step, _value_and_grad
 from bayesian_optimization_tpu_torch.models.likelihood import PIV_TOL, GPConfig, neg_log_likelihood
+from bayesian_optimization_tpu_torch.models.random_forest import RFState, rf_predict
+from bayesian_optimization_tpu_torch.optim import argmax as argmax_module
 from bayesian_optimization_tpu_torch.optim.argmax import make_unit_criterion
 from bayesian_optimization_tpu_torch.ops import _build
+from bayesian_optimization_tpu_torch.space import Discrete, Integer, Real
 from bayesian_optimization_tpu_torch.ops.hopper_kernels import (
-    _nu_code, matern_bwd_fused, matern_bwd_plain, matern_fused, matern_plain,
-    reset_launch_counts, whiten_fused, whiten_plain,
+    _nu_code, matern_bwd2_fused, matern_bwd2_plain, matern_bwd_fused, matern_bwd_plain,
+    matern_fused, matern_plain, reset_launch_counts, whiten_fused, whiten_plain,
 )
 from bayesian_optimization_tpu_torch.ops.linalg import (
-    _block_tri_inv, _whiten_parts, chol_inv_whiten, whiten, whiten_vjp,
+    _block_tri_inv, _whiten_parts, chol_and_inv, chol_inv_whiten, whiten, whiten_vjp,
 )
 from bayesian_optimization_tpu_torch.tools.whiten_bwd_variants import SOLVERS, ill_conditioned, trsm_solver
 
@@ -526,6 +551,71 @@ def check_matern_bwd():
     return head, rows
 
 
+# (label, B, N, M, D): a Hessian's cross matrix, one query against the
+# padded training rows, for one theta and for an ensemble's 8 members
+MATERN_BWD2_SHAPES = (("Hessian, n=1000", 1, 1, 1024, DIM), ("Hessian, ensemble of 8", 8, 1, 1024, DIM))
+
+
+def matern_bwd2_bound(B: int, N: int, M: int, D: int = DIM):
+    """The second derivative's bound: G read and gG written once, theta, X,
+    Y and V read once, gX written once; per element 4 D operations for r2
+    and c, ~15 for the map's two derivatives and the scalars, 4 D for gX."""
+    return bound(4 * (2 * B * N * M + B * D + 3 * N * D + M * D), B * N * M * (8 * D + 15))
+
+
+def check_matern_bwd2():
+    """The second-derivative kernel against matern_bwd2_plain: the twin in
+    float64 is the yardstick (the float32 twin's error printed beside), both
+    outputs (gG, gX), every map; two calls bit-identical; at nu = 3/2 the
+    kernel's and the float32 twin's ms a call and on the device, beside the
+    bound. Returns (worst abs error, ms, twin ms, bound ms, bound_by) at the
+    first shape, and every shape's row."""
+    worst, head, rows = 0.0, None, []
+    for label, B, N, M, D in MATERN_BWD2_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(3)
+        theta = 10 ** (torch.rand((B, D), generator=g, device="cuda") * 2.5 - 1)
+        X, Y = (torch.rand((k, D), generator=g, device="cuda") for k in (N, M))
+        G = torch.randn((B, N, M), generator=g, device="cuda")
+        V = torch.randn((N, D), generator=g, device="cuda")
+        errs, shape_err = [], 0.0
+        for nu in (0.5, 1.5, 2.5, math.inf):
+            code = _nu_code(nu)
+            got = matern_bwd2_fused(theta, X, Y, G, V, code, False, (True, True))
+            again = matern_bwd2_fused(theta, X, Y, G, V, code, False, (True, True))
+            want = matern_bwd2_plain(*(t.double() for t in (theta, X, Y, G, V)), code, False,
+                                     (True, True))
+            want32 = matern_bwd2_plain(theta, X, Y, G, V, code, False, (True, True))
+            torch.cuda.synchronize()
+            for name, a, a2, w, w32 in zip(("gG", "gX"), got, again, want, want32):
+                assert torch.equal(a, a2), f"second derivative not bit-identical ({label}, nu={nu})"
+                scale = float(w.abs().max())
+                e = float((a.double() - w).abs().max())
+                rel, rel32 = e / scale, float((w32.double() - w).abs().max()) / scale
+                worst, shape_err = max(worst, e), max(shape_err, e)
+                errs.append(f"nu={nu} {name} {rel:.2e} (float32 twin {rel32:.2e})")
+                assert rel < MATERN_BWD_TOL, (label, nu, name, rel)
+        code = _nu_code(1.5)
+
+        def kernel():
+            return matern_bwd2_fused(theta, X, Y, G, V, code, False, (True, True))
+
+        def twin():
+            return matern_bwd2_plain(theta, X, Y, G, V, code, False, (True, True))
+
+        t_k, t_p = time_ms(kernel), time_ms(twin)
+        d_k, d_p = device_ms(kernel), device_ms(twin)
+        b_ms, b_by = matern_bwd2_bound(B, N, M, D)
+        rows.append(shape_row(label, B, N, M, D, shape_err, t_k, t_p, b_ms, b_by, d_k, d_p))
+        log(f"  matern second derivative {label} ({B}, {N}, {M}, D={D}): rel err against the float64 "
+            f"twin {'; '.join(errs)} (tol {MATERN_BWD_TOL}); bit-identical repeats; nu=1.5: kernel "
+            f"{t_k:.4f} ms/call ({fmt(d_k)} ms on the device), bound {b_ms:.3g} ms ({b_by}), share of "
+            f"bound {fmt(ratio(b_ms, d_k), '.3f')}; float32 twin {t_p:.4f} ms/call ({fmt(d_p)} ms on "
+            f"the device)")
+        if head is None:
+            head = (worst, t_k, t_p, b_ms, b_by)
+    return head, rows
+
+
 def log_whiten_split(label: str, split, nb: int) -> None:
     if split is None:
         log(f"  whiten_fused {label} device split: not measured")
@@ -670,7 +760,7 @@ def padded(X, y, n_pad: int):
 
 
 def likelihood_vs_cpu(X, y, n_pad: int, pars: np.ndarray, noise_var: float = 1e-6,
-                      f64: bool = False) -> dict:
+                      f64: bool = False, config: GPConfig = GPConfig()) -> dict:
     """The concentrated likelihood and its gradient for a batch of restart
     lanes at fixed log10 parameters, on the card (both kernels and both
     backwards) and on the plain path on the CPU: "err_v" and "err_g", the
@@ -691,7 +781,7 @@ def likelihood_vs_cpu(X, y, n_pad: int, pars: np.ndarray, noise_var: float = 1e-
 
         p = t(pars).requires_grad_(True)
         v = neg_log_likelihood(p, t(Xp), t(Yp), t(mask[:, None]), t(mask), n, noise_var,
-                               t(np.zeros((1, 1))), GPConfig())
+                               t(np.zeros((1, 1))), config)
         (g,) = torch.autograd.grad(v.sum(), p)
         out[dev, dt] = (v.detach().cpu().double().numpy(), g.cpu().double().numpy())
     (v_k, g_k), (v_p, g_p) = out["cuda", torch.float32], out["cpu", torch.float32]
@@ -747,15 +837,20 @@ def main_path(X, y):
     cold = one_iter()  # cold fit: the full MLE ladder
     one_iter()  # the warm-refit path, first time
     parts = [one_iter() for _ in range(3)]
-    launches = {"matern_fused": matern_fused.launches,
-                "matern_fused_bwd": matern_fused.bwd_launches,
-                "whiten_fused": whiten_fused.launches}
+    launches = counts()
     return gp, out, cold, parts, launches
 
 
 def counts() -> dict:
     return {"matern_fused": matern_fused.launches, "matern_fused_bwd": matern_fused.bwd_launches,
-            "whiten_fused": whiten_fused.launches}
+            "matern_fused_bwd2": matern_fused.bwd2_launches, "whiten_fused": whiten_fused.launches}
+
+
+def live(c: dict) -> bool:
+    """Whether each kernel of a GP path launched: the Matern forward and
+    backward and the factorisation (the second derivative belongs to the
+    Hessian's path alone, 13c)."""
+    return all(c[k] > 0 for k in ("matern_fused", "matern_fused_bwd", "whiten_fused"))
 
 
 def profiled(fn, by_name=None):
@@ -804,12 +899,22 @@ def on_cpu(gp):
                            gp.config._asdict())
 
 
-def cpu_values(cpu_gp, enc, acq, params, U, dtype=torch.float32) -> np.ndarray:
-    """The CPU path's criterion at unit points U (k, dim), in `dtype` (the
-    posterior carried over in float32 and widened for float64)."""
-    post = cpu_gp.posterior._replace(**{k: v.to(dtype) for k, v in cpu_gp.posterior._asdict().items()})
-    crit = make_unit_criterion(type(enc)(enc.space, dtype=dtype), post, cpu_gp.config, acq,
-                               {k: torch.tensor(v, dtype=dtype) for k, v in params.items()})
+def cpu_values(model, enc, acq, params, U, dtype=torch.float32, prior=None) -> np.ndarray:
+    """The CPU path's criterion at unit points U (k, dim) from a model's
+    state (a GP's posterior or a forest's RFState) carried to the CPU in
+    `dtype` (widened from float32 for float64), with a NonparametricTrend
+    forest `prior` carried too."""
+    def carry(state):
+        moved = type(state)(*(t.cpu() for t in state))
+        if isinstance(moved, RFState):  # the thresholds stay as grown
+            return moved._replace(value=moved.value.to(dtype))
+        return type(state)(*(t.to(dtype) for t in moved))
+
+    params = {k: torch.tensor(v, dtype=dtype) for k, v in params.items()}
+    if prior is not None:
+        params.update(_prior_state=carry(prior.posterior), _prior_depth=prior.config.max_depth)
+    crit = make_unit_criterion(type(enc)(enc.space, dtype=dtype), carry(model.posterior),
+                               model.config, acq, params)
     with torch.no_grad():
         return crit(torch.tensor(np.atleast_2d(U), dtype=dtype)).double().numpy()
 
@@ -857,7 +962,7 @@ def parallel_ask(X, y, paths: dict) -> dict:
         c1 = counts()
         reps.append((fit_s, ask_s, c1["matern_fused_bwd"] - c0["matern_fused_bwd"]))
     paths["parallel_bo_q8"] = counts()
-    assert all(v > 0 for v in paths["parallel_bo_q8"].values()), paths["parallel_bo_q8"]
+    assert live(paths["parallel_bo_q8"]), paths["parallel_bo_q8"]
     assert len(us) == Q and len({tuple(np.round(u, 6)) for u in us}) > 1 and np.all(np.isfinite(vals))
     t = reps[2:]
     asks = [a for _, a, _ in t]
@@ -919,19 +1024,14 @@ def engine_runs(gp, X, y, paths: dict):
     call with the counters zeroed just before and read just after, and one
     profiled call; each winner against the CPU path's criterion there."""
     enc = RealSpace([[0.0, 1.0]] * DIM).encoding()
-    space = mixed_space()
-    enc_m = space.encoding()
-    raw = space.sample(len(X), method="LHS")
-    y_m = np.array([mixed_obj(list(r)) for r in raw])
-    y_m = (y_m - y_m.mean()) / y_m.std()
+    enc_m, X_m, y_m = mixed_data(len(X))
     gp_m = GaussianProcess(mean=constant_trend(MIXED_D), corr="matern",
                            thetaL=1e-3 * np.ones(MIXED_D), thetaU=1e3 * np.ones(MIXED_D),
                            nugget=1e-6, random_start=10, random_state=0)
-    X_m = enc_m.unit_to_embed_np(enc_m.encode_unit(raw))
     reset_launch_counts()
     _, fit_m = timed(lambda: gp_m.fit(X_m, y_m))
     c = paths["mixed_fit"] = counts()
-    assert all(v > 0 for v in c.values()), c
+    assert live(c), c
     par = np.r_[np.log10(gp_m.theta_), np.log10(gp_m.sigma2)][None]
     r = likelihood_vs_cpu(X_m, y_m, gp_m.posterior.X.shape[0], par, gp_m.noise_var, f64=True)
     log(f"[8] (b) engines at bench size (EI); the mixed space's fit at n={len(X)}, D={MIXED_D}: "
@@ -1028,6 +1128,17 @@ def sphere(x):
     return float(np.sum(np.asarray(x, dtype=float) ** 2))
 
 
+def mixed_data(n: int):
+    """(encoding, embedded rows (n, D = 6), standardized y): n LHS samples
+    of parity config 4's space and objective, the data of phase 8's mixed
+    fit."""
+    space = mixed_space()
+    enc_m = space.encoding()
+    raw = space.sample(n, method="LHS")
+    y_m = np.array([mixed_obj(list(r)) for r in raw])
+    return enc_m, enc_m.unit_to_embed_np(enc_m.encode_unit(raw)), (y_m - y_m.mean()) / y_m.std()
+
+
 def parity_runs(paths: dict):
     """(d) Parity configs 3 and 4 end to end, seed 0 (benchmark/parity.py:84-118),
     cut in depth to keep the run short: config 3 to 24 evaluations (DoE 8
@@ -1047,7 +1158,7 @@ def parity_runs(paths: dict):
         f"regret {opt.fopt:.6g} (DoE-only best {doe3:.6g}), {opt.eval_count} evaluations in "
         f"{wall3:.2f} s; counters {paths['parity_config_3']}")
     assert opt.eval_count == 24 and opt.fopt < doe3
-    assert all(v > 0 for v in paths["parity_config_3"].values())
+    assert live(paths["parity_config_3"])
     opt4 = BO(search_space=mixed_space(), obj_fun=mixed_obj, DoE_size=8, max_FEs=16,
               acquisition_fun="MGFI", acquisition_par={"t": 2.0}, random_seed=0)
     assert opt4._argmax.method == "MIES"
@@ -1125,7 +1236,7 @@ def nuts_path(X, y, bfgs_gp, paths: dict):
         cold = iteration()
         reps = [iteration() for _ in range(5)]
     c = paths["nuts_fit_argmax"] = counts()
-    assert all(v > 0 for v in c.values()), c
+    assert live(c), c
     t = reps[2:]
     walls = [f + a for f, a, _ in t]
     depth = [round(float(r.mean_depth.mean()), 3) for r in rec.results]
@@ -1175,7 +1286,7 @@ def hmc_vi_paths(X, y, paths: dict):
         reset_launch_counts()
         _, wall = timed(lambda: gp.fit(X, y))
         c = paths[f"{optimizer.lower()}_fit"] = counts()
-        assert all(v > 0 for v in c.values()), (optimizer, c)
+        assert live(c), (optimizer, c)
         extra = (f"accept rate per chain {np.round(gp.accept_rate_, 4).tolist()}" if optimizer == "HMC"
                  else f"(mean, log_std) {[np.round(p, 3).tolist() for p in gp.vi_params_]}")
         log(f"  (b) {optimizer} fit, n={len(X)}: {wall:.4f} s (cold), counters {c}; {extra}; "
@@ -1379,7 +1490,7 @@ def constrained_call(label, X, y, gp, paths: dict, call, trips_of, profile: bool
     out, ask_s = timed(call)
     work = trips_of(c0)
     c = paths[label] = counts()
-    assert all(v > 0 for v in c.values()), (label, c)
+    assert live(c), (label, c)
     if not profile:
         log(f"  {label}: fit {fit_s:.4f} s, argmax {ask_s:.4f} s in {work[0]} {work[1]}s "
             f"({fmt(ratio(ask_s * 1e3, work[0] or None), '.2f')} ms a {work[1]}; not profiled); counters {c}")
@@ -1505,7 +1616,7 @@ def parity_constrained_pca(X, y, gp, paths: dict):
         f"{float(fopt[0]):.6f} at {np.round(np.ravel(xopt), 6).tolist()}, |h| {viol:.3e} (tol 0.1), "
         f"the reference's worst seed {CONFIG6_WORST_REF}, the JAX package's median 15.4401; "
         f"{opt.eval_count} evaluations in {wall:.2f} s; counters {c}")
-    assert all(v > 0 for v in c.values()), c
+    assert live(c), c
     assert viol <= 0.1 and float(fopt[0]) <= CONFIG6_WORST_REF and opt.eval_count == 20
 
     pca = PCABO(search_space=RealSpace([[-5.0, 5.0]] * 20, random_seed=0), obj_fun=ellipsoid20,
@@ -1519,7 +1630,7 @@ def parity_constrained_pca(X, y, gp, paths: dict):
         f"{pca.fopt:.6g} (DoE-only best {doe:.6g}; PARITY.md's medians: JAX package 1.893e4, reference "
         f"1.053e4), points within [{V.min():.4f}, {V.max():.4f}], {pca.eval_count} evaluations in "
         f"{wall:.2f} s; counters {c}")
-    assert all(v > 0 for v in c.values()), c
+    assert live(c), c
     assert V.min() >= -5.0 - 1e-6 and V.max() <= 5.0 + 1e-6 and pca.fopt < doe and pca.eval_count == 60
 
     enc = RealSpace([[0.0, 1.0]] * DIM).encoding()
@@ -1537,8 +1648,259 @@ def parity_constrained_pca(X, y, gp, paths: dict):
     at_cpu = cpu_values(on_cpu(gp), enc, "GEI2", {"plugin": gei.fmin}, u)
     log(f"  (d) one BO iteration with GEI (g=2) on phase 4's data: refit + argmax {wall:.4f} s, winner "
         f"{np.round(u[0], 4).tolist()}; counters {c}")
-    assert all(v > 0 for v in c.values()), c
+    assert live(c), c
     check_against_cpu("GEI (g=2)", vals, at_cpu)
+
+
+REF_F32_LL = -1416.51   # phase 4's float32 fit at n=1000 (PERF.md)
+REF_RF_REGRETS = (0.070, 1.336)  # the reference's RF on parity config 4, 10 seeds (PARITY.json)
+
+
+def other_kernels(X, y, paths: dict):
+    """13a: GP fits at n=1000, d=5 with the absolute-exponential kernel and
+    Matern nu=7/2 (plain torch kernels, the factorisation on whiten_fused),
+    each with its likelihood at 4 lanes against the CPU path."""
+    for label, kernel in (("absolute_exponential", "absolute_exponential"),
+                          ("matern_nu_3.5", ("matern", 3.5))):
+        gp = GaussianProcess(mean=constant_trend(DIM), corr=kernel, thetaL=1e-3 * np.ones(DIM),
+                             thetaU=1e3 * np.ones(DIM), nugget=1e-6, random_start=10, random_state=0)
+        reset_launch_counts()
+        _, wall = timed(lambda: gp.fit(X, y))
+        c = paths[f"fit_{label}"] = counts()
+        r = likelihood_vs_cpu(X, y, 1024, lanes(np.random.default_rng(6), 4),
+                              config=GPConfig(kernel=kernel))
+        log(f"[13] (a) fit with {kernel} at n={len(X)}, d={DIM}: {wall:.4f} s, log-likelihood "
+            f"{gp.log_likelihood_:.4f}, theta {np.round(gp.theta_, 4).tolist()}, counters {c}; at 4 "
+            f"lanes against the CPU: rel err value {r['err_v']:.3e} (tol 1e-4), gradient "
+            f"{r['err_g']:.3e}")
+        assert c["whiten_fused"] > 0 and np.isfinite(gp.log_likelihood_), c
+        assert r["err_v"] < 1e-4, r
+
+
+def float64_gp(X, y, paths: dict):
+    """13b: the float64 GP at n=1000, d=5 on the card (the plain torch
+    stack, chosen by dtype): its fit beside phase 4's float32 basin, no
+    kernel launched, and its NLL at its own optimum against the CPU float64
+    path (1e-8 relative)."""
+    gp = GaussianProcess(mean=constant_trend(DIM), corr="matern", thetaL=1e-3 * np.ones(DIM),
+                         thetaU=1e3 * np.ones(DIM), nugget=1e-6, random_start=10, random_state=0,
+                         dtype="f64")
+    reset_launch_counts()
+    _, wall = timed(lambda: gp.fit(X, y))
+    c = paths["float64_fit"] = counts()
+    Xp, Yp, mask = padded(X, y, 1024)
+    par = gp._map_par_log10[None]
+    nll = {}
+    for dev in ("cuda", "cpu"):
+        def t(a):
+            return torch.tensor(a, dtype=torch.float64, device=dev)
+
+        nll[dev] = float(neg_log_likelihood(t(par), t(Xp), t(Yp), t(mask[:, None]), t(mask), len(X),
+                                            gp.noise_var, t(np.zeros((1, 1))), gp.config)[0])
+    err = abs(nll["cuda"] - nll["cpu"]) / abs(nll["cpu"])
+    log(f"[13] (b) float64 fit at n={len(X)}, d={DIM} on the card: {wall:.4f} s, log-likelihood "
+        f"{gp.log_likelihood_:.4f} (phase 4's float32 basin {REF_F32_LL}), theta "
+        f"{np.round(gp.theta_, 4).tolist()}, noise {gp.noise_var:.1e}, counters {c}; its NLL at its "
+        f"optimum {nll['cuda']:.8f}, the CPU float64 path's {nll['cpu']:.8f}, rel err {err:.3e} (tol 1e-8)")
+    assert all(v == 0 for v in c.values()), c
+    assert gp.posterior.L.dtype == torch.float64 and err < 1e-8 and np.isfinite(gp.log_likelihood_)
+
+
+def derivatives(gp, paths: dict):
+    """13c: gradient and Hessian of phase 4's GP at 5 points against the CPU
+    path on the same posterior; the yardstick is the CPU path in float64 on
+    that posterior, and the card's error must stay within 3x the CPU
+    float32 path's (or 1e-4 of the largest entry). Every Hessian must run
+    the second-derivative kernel once per dimension."""
+    cpu32 = on_cpu(gp)
+    d = gp.theta_.shape[0]
+    cpu64 = GaussianProcess(thetaL=1e-3 * np.ones(d), thetaU=1e3 * np.ones(d), dtype="f64",
+                            device="cpu").load_fitted(
+        gp.theta_, {k: v.cpu().double().numpy() for k, v in gp.posterior._asdict().items()},
+        gp.config._asdict())
+    pts = np.random.default_rng(7).uniform(0.05, 0.95, (5, d))
+    reset_launch_counts()
+    errs = {}
+    t0 = time.perf_counter()
+    for x in pts:
+        for name, fn in (("gradient mean", lambda m: m.gradient(x)[0]),
+                         ("gradient mse", lambda m: m.gradient(x)[1]),
+                         ("Hessian mean", lambda m: m.Hessian(x, of="mean")),
+                         ("Hessian mse", lambda m: m.Hessian(x, of="mse"))):
+            card, c32, c64 = fn(gp), fn(cpu32), fn(cpu64)
+            scale = float(np.abs(c64).max())
+            e, e32 = float(np.abs(card - c64).max()), float(np.abs(c32 - c64).max())
+            prev = errs.get(name, (0.0, 0.0, 0.0))
+            errs[name] = (max(prev[0], e / scale), max(prev[1], e32 / scale), max(prev[2], scale))
+            assert np.all(np.isfinite(card)) and e <= max(3 * e32, 1e-4 * scale), (name, x, card, c64)
+    wall = time.perf_counter() - t0
+    c = paths["gradient_hessian"] = counts()
+    for name, (e, e32, scale) in errs.items():
+        log(f"  (c) {name} at 5 points against the CPU path in float64: the card {e:.3e}, the CPU "
+            f"float32 path {e32:.3e} (relative to the largest entry, up to {scale:.3e})")
+    log(f"[13] (c) gradient/Hessian of phase 4's GP at 5 points: {wall:.4f} s with the CPU runs; "
+        f"counters {c} (the gradient through the Matern backward kernel, each Hessian through the "
+        f"forward, the backward and the second-derivative kernel, once per dimension)")
+    assert c["matern_fused"] > 0 and c["matern_fused_bwd"] > 0, c
+    assert c["matern_fused_bwd2"] == 2 * len(pts) * d, c
+
+
+def chol_and_inv_check(paths: dict):
+    """13d: chol_and_inv at n=1024 on the card against its CPU twin, with
+    its device time and the plain twin's on the card."""
+    R = kernel_like(1, 1024, 11)[0]
+    B1 = torch.zeros(1024, 1, device=R.device)
+    reset_launch_counts()
+    L, Li, piv = chol_and_inv(R)
+    torch.cuda.synchronize()
+    c = paths["chol_and_inv"] = counts()
+    Lc, Lic, _ = chol_and_inv(R.cpu())
+    err_l = float((L.cpu() - Lc).abs().max() / Lc.abs().max())
+    err_i = float((Li.cpu() - Lic).abs().max() / Lic.abs().max())
+
+    def plain():
+        _d, _W, _p, Lp, Dp = whiten_plain(R, B1)
+        return _block_tri_inv(Lp, Dp)
+
+    t_k, t_p = time_ms(lambda: chol_and_inv(R)), time_ms(plain)
+    d_k, d_p = device_ms(lambda: chol_and_inv(R)), device_ms(plain)
+    log(f"[13] (d) chol_and_inv at n=1024: L rel err {err_l:.3e} (tol {WHITEN_L_TOL}), L^-1 rel err "
+        f"{err_i:.3e} (tol {CHOL_INV_TOL}) against the CPU twin; {t_k:.4f} ms a call "
+        f"({fmt(d_k)} ms on the device), the plain twin on the card {t_p:.4f} ms ({fmt(d_p)} ms); "
+        f"min pivot {float(piv):.3e}; counters {c}")
+    assert c["whiten_fused"] == 1 and err_l < WHITEN_L_TOL and err_i < CHOL_INV_TOL and float(piv) > 0
+
+
+def forest_paths(paths: dict):
+    """13e: RandomForest() (100 trees) grown on phase 8's 1000 mixed
+    observations (D = 6): grow wall, nodes and depth; its traversal on the
+    card against the CPU's on the same forest; then an MGFI MIES argmax on
+    it: wall, generations, criterion evaluations, launches an evaluation,
+    idle share."""
+    enc_m, X_m, y_m = mixed_data(1000)
+    rf = RandomForest(feature_space="embedding", random_state=0)
+    rf.fit(X_m[:50], y_m[:50])  # a warm-up growth
+    reset_launch_counts()
+    _, wall = timed(lambda: rf.fit(X_m, y_m))
+    paths["forest_grow"] = counts()
+    st = rf.posterior
+    live_nodes = (st.feature >= 0).sum(1) * 2 + 1  # a tree's nodes: two for each split, and the root
+    Xq = torch.tensor(np.random.default_rng(8).uniform(0, 1, (1000, MIXED_D)), dtype=torch.float32)
+    mu_d, var_d = rf_predict(st, Xq.cuda(), rf.config)
+    mu_c, var_c = rf_predict(RFState(*(t.cpu() for t in st)), Xq, rf.config)
+    err = max(float((mu_d.cpu() - mu_c).abs().max()), float((var_d.cpu() - var_c).abs().max()))
+    t_trav = time_ms(lambda: rf_predict(st, Xq.cuda(), rf.config), windows=3, calls=5)
+    log(f"[13] (e) RandomForest (100 trees) grown on {len(X_m)} mixed observations (D = {MIXED_D}): "
+        f"{wall:.4f} s, {int(live_nodes.sum())} nodes ({int(live_nodes.min())}-{int(live_nodes.max())} "
+        f"a tree, table width {st.feature.shape[1]}), depth {rf.config.max_depth}; traversal of 1000 "
+        f"points on the card against the CPU on the same forest: max abs err {err:.3e} (tol 1e-6), "
+        f"{t_trav:.4f} ms a call; counters {paths['forest_grow']}")
+    assert err <= 1e-6 and rf.config.max_depth > 1
+    am = AcquisitionArgmax(enc_m, method="MIES", seed=0)
+    params = {"plugin": float(y_m.min()), "t": 2.0}
+
+    def call():
+        return am(rf.posterior, rf.config, "MGFI", params)
+
+    call()
+    evals = [0]
+    inner = argmax_module.rf_predict
+
+    def counted(*args):  # one forest traversal a criterion evaluation
+        evals[0] += 1
+        return inner(*args)
+
+    argmax_module.rf_predict = counted
+    try:
+        reset_launch_counts()
+        (u, v), wall = timed(call)
+    finally:
+        argmax_module.rf_predict = inner
+    paths["forest_mies_argmax"] = counts()
+    _, dev_ms, n_k, wall_p = profiled(call)
+    log(f"  (e) MGFI MIES argmax on the forest: {wall:.4f} s, {am.n_mies_generations} generations, "
+        f"{evals[0]} criterion evaluations, {fmt(ratio(n_k, evals[0]), '.1f')} launches an evaluation, "
+        f"{fmt(dev_ms, '.2f')} ms on the device "
+        f"in a profiled call of {wall_p:.4f} s (idle share {fmt(idle_share(dev_ms, wall_p), '.3f')}); "
+        f"winner value {v:.6e} at {np.round(u, 4).tolist()}; counters {paths['forest_mies_argmax']}")
+    check_against_cpu("MIES on the forest", [v], cpu_values(rf, enc_m, "MGFI", params, u))
+
+
+def nonparametric_trend_path(X, y, paths: dict):
+    """13f: a GP under a NonparametricTrend (100-tree forest) at n=1000,
+    d=5: the forest, the residual fit and the BFGS EI argmax (25 restarts)
+    with the forest riding in the criterion; every Hopper kernel must
+    launch. The plugin is y's 10th percentile, a level the model's mean
+    reaches (at min(y) the residual GP's EI underflows everywhere and no
+    lane moves); the winner must beat every start and lie away from them,
+    and its criterion must equal the CPU path's there."""
+    forest = RandomForest(feature_space="embedding", random_state=0)
+    gp = GaussianProcess(mean=NonparametricTrend(forest), corr="matern", thetaL=1e-3 * np.ones(DIM),
+                         thetaU=1e3 * np.ones(DIM), nugget=1e-6, random_start=10, random_state=0)
+    am = AcquisitionArgmax(RealSpace([[0.0, 1.0]] * DIM).encoding(), method="BFGS", n_restart=5 * DIM,
+                           seed=0)
+    reset_launch_counts()
+    _, grow = timed(lambda: forest.fit(X, y))
+    _, fit = timed(lambda: gp.fit(X, y))
+    params = {"plugin": float(np.quantile(y, 0.1))}
+    reserved = {"_prior_state": forest.posterior, "_prior_depth": forest.config.max_depth}
+    gen = torch.Generator().set_state(am._gen.get_state())  # the argmax's own starts
+    starts = torch.rand((am.n_restart, DIM), generator=gen, dtype=am.encoding.dtype).numpy()
+    (u, v), ask = timed(lambda: am(gp.posterior, gp.config, "EI", {**params, **reserved}))
+    c = paths["nonparametric_trend"] = counts()
+    held = held_out(200)
+    err = float(np.abs(gp.predict(held[0]) - held[1]).max())
+    at_starts = cpu_values(gp, am.encoding, "EI", params, starts, prior=forest)
+    moved = float(np.sqrt(((starts - np.asarray(u).ravel()) ** 2).sum(1)).min())
+    log(f"[13] (f) NonparametricTrend GP at n={len(X)}, d={DIM}: forest {grow:.4f} s, residual fit "
+        f"{fit:.4f} s (log-likelihood {gp.log_likelihood_:.4f}), BFGS EI argmax (plugin "
+        f"{params['plugin']:.4f}) {ask:.4f} s in {c['matern_fused_bwd']} backward launches, winner "
+        f"value {v:.6e} at {np.round(u, 4).tolist()} (the best of its {len(starts)} starts "
+        f"{float(at_starts.max()):.6e}, the nearest start {moved:.4f} away); max |mu - y| on 200 "
+        f"held-out points {err:.4f}; counters {c}")
+    assert live(c), c
+    assert v > float(at_starts.max()) and moved > 1e-3, (v, at_starts, moved)
+    check_against_cpu("NonparametricTrend EI", [v], cpu_values(gp, am.encoding, "EI", params, u,
+                                                               prior=forest))
+
+
+def conditional_and_rf_bo(paths: dict):
+    """13g: ConditionalBO on tests/test_extensions.py's conditional space, 30
+    evaluations, seed 0; then BO with a RandomForest surrogate on parity
+    config 4's mixed problem, 40 evaluations, seed 0, its regret beside the
+    reference's RF regrets."""
+    space = SearchSpace([Integer([1, 3], "x"), Discrete(["A", "B", "C"], "y1", conditions="x == 1"),
+                         Discrete(["A", "B", "C"], "y2", conditions="x == 2"), Real([-5, 5], "z")])
+
+    def fitness(p):
+        v = p["x"] ** 2 + p["z"] ** 2
+        if p.get("y1"):
+            v += p["y1"] == "B"
+        if p.get("y2"):
+            v += p["y2"] == "A"
+        return float(v)
+
+    opt = ConditionalBO(search_space=space, obj_fun=fitness, DoE_size=4, max_FEs=30, random_seed=0)
+    reset_launch_counts()
+    _, wall = timed(opt.run)
+    paths["conditional_bo"] = counts()
+    log(f"[13] (g) ConditionalBO ({opt.n_subspace} subspaces, RF sub-BOs, MIES), 30 evaluations, seed 0: "
+        f"fopt {opt.fopt:.6g} (optimum 1) at {opt.xopt.tolist()[0]}, {opt.eval_count} evaluations in "
+        f"{wall:.2f} s; counters {paths['conditional_bo']}")
+    assert opt.eval_count == 30 and np.isfinite(opt.fopt)
+    rf_bo = BO(search_space=mixed_space(), obj_fun=mixed_obj,
+               model=RandomForest(feature_space="embedding", random_state=0), DoE_size=8, max_FEs=40,
+               acquisition_fun="MGFI", acquisition_par={"t": 2.0}, random_seed=0)
+    assert rf_bo._argmax.method == "MIES"
+    reset_launch_counts()
+    _, wall = timed(rf_bo.run)
+    paths["rf_bo_parity_config_4"] = counts()
+    doe = float(np.min(rf_bo.data.fitness[:8]))
+    log(f"  (g) BO with a RandomForest on parity config 4 (mixed space, MGFI, MIES), 40 evaluations, "
+        f"seed 0: regret {rf_bo.fopt:.6g} (DoE-only best {doe:.6g}; the reference's RF over 10 seeds "
+        f"{REF_RF_REGRETS[0]}-{REF_RF_REGRETS[1]}) at {rf_bo.xopt.tolist()[0]}, {rf_bo.eval_count} "
+        f"evaluations in {wall:.2f} s; counters {paths['rf_bo_parity_config_4']}")
+    assert rf_bo.eval_count == 40 and rf_bo.fopt < doe
 
 
 def ptxas_summary(log_text: str):
@@ -1593,6 +1955,7 @@ def main() -> None:
     log("[3] kernels vs plain twins on the card")
     (m_err, m_ms, m_plain, m_bound, m_by), m_rows = check_matern()
     (b_err, b_ms, b_plain, b_bound, b_by), b_rows = check_matern_bwd()
+    (h_err, h_ms, h_plain, h_bound, h_by), h_rows = check_matern_bwd2()
     w_err, (w_ms, w_plain, w_bound, w_by), w_rows = check_whiten()
     w_rows.append(check_chol_inv_whiten())
     log("[3b] the card's path against the plain path on the CPU, on a small input")
@@ -1607,7 +1970,7 @@ def main() -> None:
         f"min {min(times):.4f} s over {len(times)} reps {[round(t, 4) for t in times]}; "
         f"fit {[round(f, 4) for f, _ in parts]} s, argmax {[round(a, 4) for _, a in parts]} s; "
         f"cold first iteration: fit {cold[0]:.4f} s, argmax {cold[1]:.4f} s; launches {launches}")
-    assert all(v > 0 for v in launches.values()), launches
+    assert live(launches), launches
     trips = launches["matern_fused_bwd"]  # one Matern backward per L-BFGS trip (fit or argmax)
     log(f"  L-BFGS trips over the {len(parts) + 2} iterations (fit and argmax): {trips}, "
         f"{trips / (len(parts) + 2):.1f} per iteration; matern_fused forward launches per trip "
@@ -1687,14 +2050,28 @@ def main() -> None:
     constrained_paths(X, y, gp, u, paths)
     stamp("phase 12c-d")
     parity_constrained_pca(X, y, gp, paths)
+
+    # 13. the other covariances, float64 on the card, the GP's derivatives,
+    # chol_and_inv, and the tree-surrogate and conditional paths
+    stamp("phase 13")
+    other_kernels(X, y, paths)
+    float64_gp(X, y, paths)
+    derivatives(gp, paths)
+    chol_and_inv_check(paths)
+    stamp("phase 13e")
+    forest_paths(paths)
+    nonparametric_trend_path(X, y, paths)
+    stamp("phase 13g")
+    conditional_and_rf_bo(paths)
     log(f"  profiler sessions: {PROFILER_SESSIONS['run']}, of which {PROFILER_SESSIONS['empty']} traced "
         f"no kernel")
 
     # ms, plain_ms and bound_ms: matern_fused at (10, 1024, 1024), its
-    # backward at (2, 1024, 1024) (theta only), whiten_fused at (2, 1024);
-    # "shapes" the batch and engine paths' shapes; "launches" the main
-    # path's count, "launches_by_path" every path's. No single PyTorch call
-    # computes any of the three functions
+    # backward at (2, 1024, 1024) (theta only), its second derivative at
+    # (1, 1, 1024), whiten_fused at (2, 1024); "shapes" the batch and engine
+    # paths' shapes; "launches" the main path's count (the second
+    # derivative's: the Hessian path's, 13c), "launches_by_path" every
+    # path's. No single PyTorch call computes any of the four functions
     def by_path(name):
         return {path: c[name] for path, c in paths.items()}
 
@@ -1711,6 +2088,12 @@ def main() -> None:
          "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
          "bound_by": b_by, "library_ms": None, "shapes": b_rows,
          "launches_by_path": by_path("matern_fused_bwd")},
+        {"name": "matern_fused_bwd2", "route": "cuda",
+         "source": "bayesian_optimization_tpu_torch/csrc/matern_bwd2.cu",
+         "replaces": f"{PALLAS}:98", "launches": paths["gradient_hessian"]["matern_fused_bwd2"],
+         "max_abs_err": h_err, "ms": h_ms, "plain_ms": h_plain, "bound_ms": h_bound,
+         "bound_by": h_by, "library_ms": None, "shapes": h_rows,
+         "launches_by_path": by_path("matern_fused_bwd2")},
         {"name": "whiten_fused", "route": "cuda",
          "source": "bayesian_optimization_tpu_torch/csrc/whiten.cu",
          "replaces": f"{PALLAS}:278", "launches": launches["whiten_fused"],

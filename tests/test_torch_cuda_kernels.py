@@ -12,8 +12,8 @@ import pytest
 import torch
 
 from bayesian_optimization_tpu_torch.ops.hopper_kernels import (
-    _nu_code, matern_bwd_fused, matern_bwd_plain, matern_fused, matern_plain, whiten_fused,
-    whiten_plain,
+    _nu_code, matern_bwd2_fused, matern_bwd2_plain, matern_bwd_fused, matern_bwd_plain,
+    matern_fused, matern_plain, whiten_fused, whiten_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -237,13 +237,6 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         whiten_fused(R, torch.ones(200, 1, device=dev))
     with pytest.raises(NotImplementedError):
         whiten_fused(R[:128, :128].double(), torch.ones(128, 1, device=dev, dtype=torch.float64))
-
-
-def test_float64_gp_option_raises_on_the_card(dev):
-    from bayesian_optimization_tpu_torch.models import GaussianProcess
-
-    with pytest.raises(NotImplementedError):
-        GaussianProcess(thetaL=[1e-3], thetaU=[1e3], device=dev, dtype="f64")
 
 
 # (N queries, M training rows, D): the batch and engine paths' cross
@@ -557,3 +550,168 @@ def test_pcabo_runs_on_the_card(dev):
     assert matern_fused.launches > 0 and matern_fused.bwd_launches > 0 and whiten_fused.launches > 0
     V = np.asarray(opt.data.values, dtype=float)
     assert opt.eval_count == 16 and V.min() >= -5 - 1e-6 and V.max() <= 5 + 1e-6
+
+
+def _f64_problem(n=300, d=3, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(0, 1, (n, d))
+    return X, np.sin(3 * X).sum(1) + 0.05 * rng.standard_normal(n)
+
+
+@pytest.mark.parametrize("kernel", ["matern", "absolute_exponential", ("matern", 3.5)])
+def test_float64_gp_on_the_card(dev, kernel):
+    """The float64 option runs on the card (it once raised there) and takes
+    the plain torch stack, chosen by dtype: its likelihood at fixed theta equals the CPU float64 path's
+    (1e-10 relative), and neither kernel's counter moves across a fit."""
+    from bayesian_optimization_tpu_torch import GaussianProcess
+    from bayesian_optimization_tpu_torch.models.likelihood import GPConfig, neg_log_likelihood
+
+    X, y = _f64_problem()
+    n_pad = 1024
+    Xp = np.zeros((n_pad, 3))
+    Xp[:300] = X
+    Yp = np.zeros((n_pad, 1))
+    Yp[:300, 0] = (y - y.mean()) / y.std()
+    mask = (np.arange(n_pad) < 300).astype(float)
+    pars = np.random.default_rng(1).uniform(-0.5, 1.0, (4, 4))
+    vals = {}
+    before = (matern_fused.launches, matern_fused.bwd_launches, whiten_fused.launches)
+    for d in ("cpu", dev):
+        def t(a):
+            return torch.tensor(a, dtype=torch.float64, device=d)
+
+        vals[str(d)] = neg_log_likelihood(t(pars), t(Xp), t(Yp), t(mask[:, None]), t(mask), 300,
+                                          1e-6, t(np.zeros((1, 1))), GPConfig(kernel=kernel)).cpu().numpy()
+    gp = GaussianProcess(corr=kernel, thetaL=1e-2 * np.ones(3), thetaU=1e2 * np.ones(3),
+                         random_start=4, random_state=0, dtype="f64", device=dev).fit(X, y)
+    torch.cuda.synchronize()
+    assert (matern_fused.launches, matern_fused.bwd_launches, whiten_fused.launches) == before
+    assert np.abs(vals["cuda"] - vals["cpu"]).max() <= 1e-10 * np.abs(vals["cpu"]).max()
+    assert gp.dtype == torch.float64 and gp.posterior.L.device.type == "cuda"
+    assert np.isfinite(gp.log_likelihood_) and gp.posterior.L.dtype == torch.float64
+
+
+def test_float64_tensors_still_raise_in_the_wrappers(dev):
+    X = torch.rand(64, 3, dtype=torch.float64, device=dev)
+    with pytest.raises(NotImplementedError, match="float32"):
+        matern_fused(torch.ones(3, dtype=torch.float64, device=dev), X)
+    R = torch.eye(64, dtype=torch.float64, device=dev)
+    with pytest.raises(NotImplementedError, match="float32"):
+        whiten_fused(R, X)
+
+
+@pytest.mark.parametrize("n", [16, 128, 1024])
+def test_chol_and_inv_on_the_card(dev, n):
+    """chol_and_inv launches whiten_fused and agrees with its CPU path
+    (L within 1e-5 relative, L^-1 L within 1e-4 of I), with its VJP."""
+    from bayesian_optimization_tpu_torch.ops.linalg import chol_and_inv
+
+    R = _kernel_like(n, 1, 7, jitter=1.0)[0] / 2.0
+    before = whiten_fused.launches
+    Rd = torch.tensor(R, device=dev, requires_grad=True)
+    L, Li, piv = chol_and_inv(Rd)
+    (g,) = torch.autograd.grad((L.sum() + Li.sum()), Rd)
+    torch.cuda.synchronize()
+    assert whiten_fused.launches == before + 1
+    Rc = torch.tensor(R, requires_grad=True)
+    Lc, Lic, pc = chol_and_inv(Rc)
+    (gc,) = torch.autograd.grad((Lc.sum() + Lic.sum()), Rc)
+    L64 = np.linalg.cholesky(R.astype(np.float64))
+    assert float((L.cpu() - Lc).abs().max()) <= 1e-5 * float(Lc.abs().max())
+    assert np.abs(Li.detach().cpu().double().numpy() @ L64 - np.eye(n)).max() < 1e-4
+    assert float((g.cpu() - gc).abs().max()) <= 1e-4 * float(gc.abs().max())
+    assert float(piv) > 0
+
+
+def test_forest_grown_on_the_card(dev):
+    """A forest grown on the card: the card's traversal equals the CPU's on
+    the same forest (1e-6), and a second growth from the seed is
+    identical."""
+    from bayesian_optimization_tpu_torch import RandomForest
+    from bayesian_optimization_tpu_torch.models.random_forest import RFState, rf_predict
+
+    rng = np.random.default_rng(3)
+    X = rng.uniform(0, 1, (1000, 6))
+    y = np.sin(4 * X).sum(1) + 0.1 * rng.standard_normal(1000)
+    rf = RandomForest(feature_space="embedding", random_state=0, device=dev).fit(X, y)
+    again = RandomForest(feature_space="embedding", random_state=0, device=dev).fit(X, y)
+    for a, b in zip(rf.posterior, again.posterior):
+        assert torch.equal(a, b)
+    Xq = torch.tensor(rng.uniform(0, 1, (500, 6)), dtype=torch.float32)
+    mu_d, var_d = rf_predict(rf.posterior, Xq.to(dev), rf.config)
+    cpu = RFState(*(t.cpu() for t in rf.posterior))
+    mu_c, var_c = rf_predict(cpu, Xq, rf.config)
+    assert float((mu_d.cpu() - mu_c).abs().max()) <= 1e-6
+    assert float((var_d.cpu() - var_c).abs().max()) <= 1e-6
+    assert rf.posterior.feature.shape[0] == 100 and rf.config.max_depth > 5
+
+
+# (B, N, M, D, sym): a Hessian's cross matrix (one query, the padded
+# training rows), an ensemble's 8 members, D past one 8-feature chunk, a
+# ragged batch of rows, and a unit diagonal
+BWD2_SHAPES = [(1, 1, 1024, 5, False), (8, 1, 1024, 5, False), (1, 1, 300, 11, False),
+               (2, 37, 53, 5, False), (2, 40, 40, 3, True)]
+
+
+@pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("shape", BWD2_SHAPES, ids=str)
+def test_matern_bwd2_kernel_matches_twin(dev, nu, shape):
+    """The second-derivative kernel against matern_bwd2_plain run in
+    float64 (1e-4 relative, as the backward), both outputs, and two calls
+    bit-identical."""
+    B, N, M, D, sym = shape
+    r = np.random.default_rng(N + M + D)
+    theta = torch.tensor(10 ** r.uniform(-1, 1.5, (B, D)), dtype=torch.float32, device=dev)
+    X = torch.tensor(r.uniform(0, 1, (N, D)), dtype=torch.float32, device=dev)
+    Y = X.clone() if sym else torch.tensor(r.uniform(0, 1, (M, D)), dtype=torch.float32, device=dev)
+    G = torch.tensor(r.standard_normal((B, N, M)), dtype=torch.float32, device=dev)
+    V = torch.tensor(r.standard_normal((N, D)), dtype=torch.float32, device=dev)
+    code = _nu_code(nu)
+    before = matern_fused.bwd2_launches
+    got = matern_bwd2_fused(theta, X, Y, G, V, code, sym, (True, True))
+    again = matern_bwd2_fused(theta, X, Y, G, V, code, sym, (True, True))
+    want = matern_bwd2_plain(*(t.double() for t in (theta, X, Y, G, V)), code, sym, (True, True))
+    torch.cuda.synchronize()
+    assert matern_fused.bwd2_launches == before + 2
+    for a, a2, w in zip(got, again, want):
+        assert torch.equal(a, a2)
+        assert float((a.double() - w).abs().max() / w.abs().max()) < 1e-4
+
+
+def test_matern_second_derivative_on_the_card_refuses(dev):
+    """On the card as on the CPU: no second derivative through theta, and
+    the kernel refuses a float64 tensor."""
+    X = torch.rand(4, 3, device=dev, requires_grad=True)
+    Y = torch.rand(9, 3, device=dev)
+    theta = torch.ones(3, device=dev, requires_grad=True)
+    (gx,) = torch.autograd.grad(matern_fused(theta, X, Y).sum(), X, create_graph=True)
+    with pytest.raises(NotImplementedError, match="second derivative"):
+        torch.autograd.grad(gx.sum(), X)
+    t64 = lambda *shape: torch.rand(*shape, device=dev, dtype=torch.float64)  # noqa: E731
+    with pytest.raises(NotImplementedError):
+        matern_bwd2_fused(t64(1, 3), t64(4, 3), t64(9, 3), t64(1, 4, 9), t64(4, 3), 3, False,
+                          (True, True))
+
+
+def test_gradient_and_hessian_on_the_card(dev):
+    """A float32 Matern GP on the card: gradient (through the Matern
+    backward kernel) and Hessian (through the forward, backward and
+    second-derivative kernels, the last once per dimension) against the CPU
+    path on the same posterior."""
+    from bayesian_optimization_tpu_torch import GaussianProcess
+
+    X, y = _f64_problem(200)
+    kw = dict(thetaL=1e-2 * np.ones(3), thetaU=1e2 * np.ones(3), random_start=4, random_state=0)
+    gp = GaussianProcess(device=dev, **kw).fit(X, y)
+    cpu = GaussianProcess(device="cpu", **kw).load_fitted(
+        gp.theta_, {k: v.cpu().numpy() for k, v in gp.posterior._asdict().items()}, gp.config._asdict())
+    x = np.array([0.3, 0.6, 0.4])
+    before = matern_fused.bwd_launches
+    for gd, gc in zip(gp.gradient(x), cpu.gradient(x)):
+        assert np.abs(gd - gc).max() <= 1e-3 * np.abs(gc).max()
+    assert matern_fused.bwd_launches > before
+    for of in ("mean", "mse"):
+        before = matern_fused.bwd2_launches
+        Hd, Hc = gp.Hessian(x, of=of), cpu.Hessian(x, of=of)
+        assert matern_fused.bwd2_launches == before + 3
+        assert np.abs(Hd - Hc).max() <= 1e-3 * np.abs(Hc).max()

@@ -186,6 +186,58 @@ def test_matern_bwd_schedule_matches_twin(case, nu):
             assert float((got - w).abs().max() / w.abs().max()) < 1e-9
 
 
+@pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("case", ["lanes3", "gated", "ragged", "sym"])
+@pytest.mark.parametrize("fn", [matern_plain, matern_fused], ids=["plain", "fused"])
+def test_matern_second_derivative_matches_jax(fn, case, nu):
+    """The second derivative of a cross-covariance in its first argument,
+    as a Hessian takes it: for s = <d/dX sum(G * K(X, Y)), V>, ds/dX and
+    ds/dG against jax.grad of jax.grad of the JAX package's kernel (1e-4
+    relative). Through matern_fused on the CPU that is the backward's own
+    backward, matern_bwd2_plain, the twin of the second-derivative kernel;
+    through matern_plain torch's autograd of the twin's ops. With sym (Y
+    a copy of X) the unit diagonal carries no derivative."""
+    theta, X, Y, G = _bwd_case("lanes3" if case == "sym" else case)
+    if case == "sym":
+        Y = X.copy()
+        G = G[:, :, :X.shape[0]] * (1.0 - np.eye(X.shape[0], dtype=np.float32))
+    V = np.random.default_rng(8).standard_normal(X.shape).astype(np.float32)
+    kern = _jax_kernel(nu)
+
+    def s_of(x, g):
+        gx = jax.grad(lambda xx: sum(jnp.sum(kern(theta[b], xx, jnp.asarray(Y)) * g[b])
+                                     for b in range(g.shape[0])))(x)
+        return jnp.sum(gx * V)
+
+    want = jax.grad(s_of, argnums=(0, 1))(jnp.asarray(X), jnp.asarray(G))
+    x = torch.tensor(X, requires_grad=True)
+    g = torch.tensor(G, requires_grad=True)
+    K = fn(torch.tensor(theta), x, torch.tensor(Y), nu=nu, sym=case == "sym")
+    (gx,) = torch.autograd.grad((K * g).sum(), x, create_graph=True)
+    got = torch.autograd.grad((gx * torch.tensor(V)).sum(), (x, g))
+    for a, w in zip(got, want):
+        a, w = a.numpy(), np.asarray(w, np.float64)
+        assert np.isfinite(a).all()
+        assert np.abs(a - w).max() / np.abs(w).max() < 1e-4
+
+
+def test_matern_second_derivative_refuses_theta_y_and_k_xx():
+    """The second-derivative kernel differentiates the X gradient of a
+    cross-covariance in G and X only: through theta, through Y, or of K(X, X)
+    the wrapper raises on the CPU as on the card. Nothing launches on CPU
+    tensors."""
+    reset_launch_counts()
+    X = torch.tensor(X_NP[:20], requires_grad=True)
+    Y = torch.tensor(Y_NP[:30])
+    th = torch.tensor(THETA_NP)
+    for theta, y in ((th.clone().requires_grad_(True), Y), (th, Y.clone().requires_grad_(True)),
+                     (th, None)):
+        (gx,) = torch.autograd.grad(matern_fused(theta, X, y, nu=1.5).sum(), X, create_graph=True)
+        with pytest.raises(NotImplementedError, match="second derivative"):
+            torch.autograd.grad(gx.sum(), X)
+    assert matern_fused.bwd2_launches == 0 and matern_fused.launches == 0
+
+
 def _kernel_like(n, seed, jitter=1e-2):
     r = np.random.default_rng(seed)
     Z = r.uniform(0, 1, (n, 4))
