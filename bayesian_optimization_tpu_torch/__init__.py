@@ -4,12 +4,13 @@ The same public names as the JAX package, for the slices ported so far:
 `fmin` (n_point >= 1), `BO` and the batch flavors `ParallelBO`,
 `AnnealingBO`, `SelfAdaptiveBO`, `NoisyBO`, `MultiAcquisitionBO` on real and
 mixed spaces, with equality/inequality constraints (`eq_fun`/`ineq_fun`,
-`ConstraintProgram`), `PCABO`, `ConditionalBO`; the `GaussianProcess` (every
+`ConstraintProgram`), `PCABO`, `ConditionalBO`, the multi-objective `MOBO`
+(EHVI) and `MOBO_qEHVI` (joint q-point qEHVI); the `GaussianProcess` (every
 kernel of the JAX package's `_KERNELS`; batched L-BFGS or population-CMA
 MLE, or an HMC/NUTS/VI ensemble; float32 or float64; `gradient`/`Hessian`;
 a `NonparametricTrend` prior), the `RandomForest` grown on the device (no
 scikit-learn) and `SurrogateAggregation`, the criteria EI, PI, EpsilonPI,
-UCB, MGFI and GEI, and the `AcquisitionArgmax` with its BFGS, CMA, SMC and
+UCB, MGFI, GEI, EHVI and qEHVI, and the `AcquisitionArgmax` with its BFGS, CMA, SMC and
 MIES engines. Each kernel the JAX
 package wrote in Pallas for the TPU is a CUDA kernel written by hand for
 Hopper (csrc/), built at first use. Public constructors take `device=`
@@ -30,8 +31,8 @@ from .utils import (
     ObjectiveEvaluationError, RecommendationUnavailableError,
 )
 from .core import (
-    BO, PCABO, AnnealingBO, BaseBO, BaseOptimizer, ConditionalBO, MultiAcquisitionBO, NoisyBO,
-    ParallelBO, SelfAdaptiveBO, Solution,
+    BO, MOBO, PCABO, AnnealingBO, BaseBO, BaseOptimizer, ConditionalBO, MOBO_qEHVI,
+    MultiAcquisitionBO, NoisyBO, ParallelBO, SelfAdaptiveBO, Solution,
 )
 from .models import GaussianProcess, RandomForest, SurrogateAggregation, trend
 from .models.trend import NonparametricTrend, constant_trend
@@ -46,7 +47,7 @@ __all__ = [
     "BoolSpace", "SubsetSpace", "Node", "SpaceEncoding",
     "Solution", "BaseOptimizer", "BaseBO",
     "BO", "ParallelBO", "AnnealingBO", "SelfAdaptiveBO", "NoisyBO", "MultiAcquisitionBO",
-    "PCABO", "ConditionalBO", "GaussianProcess", "RandomForest", "SurrogateAggregation",
+    "MOBO", "MOBO_qEHVI", "PCABO", "ConditionalBO", "GaussianProcess", "RandomForest", "SurrogateAggregation",
     "NonparametricTrend", "AcquisitionArgmax", "ConstraintProgram", "trend", "constant_trend", "EI", "PI", "EpsilonPI", "UCB", "MGFI", "GEI",
     "AskEmptyError", "FlatFitnessError", "RecommendationUnavailableError",
     "ObjectiveEvaluationError", "ConstraintEvaluationError",

@@ -38,8 +38,16 @@ forest (`_prior_state`, an RFState, and `_prior_depth`), whose traversal is
 added to the residual GP's mean. "GEI<g>" names generalized EI of order g.
 A posterior may also be a random forest's (`RFState` with its `RFConfig`):
 the criterion then takes the forest's mean and across-tree variance, and
-the engines that need no gradient (CMA, SMC, MIES) maximize it. Not ported
-yet (they raise or are refused): meshes, EHVI and qEHVI.
+the engines that need no gradient (CMA, SMC, MIES) maximize it.
+
+The multi-objective criteria: "EHVI" takes the (P, m)
+moments of a multi-output posterior into `ops/ehvi.ehvi`; "qEHVI<q>" is a
+joint criterion over a q-replicated space, whose (P, q * dim) candidates are
+reshaped to P * q rows for one predict, then `qehvi` over the P lanes on
+fixed standard-normal samples, minus the per-copy penalties summed. Their
+parameters `cell_lower`, `cell_upper` (K, m) and `eps` (S, q, m) are shared
+by every lane, as the reserved ones are: never repeated or indexed by lane.
+Not ported yet (it raises): meshes.
 """
 from __future__ import annotations
 
@@ -54,6 +62,7 @@ from .._device import DEFAULT_DEVICE, resolve_device
 from ..models.likelihood import GPConfig, PosteriorState, predict_gp, trend_basis
 from ..models.random_forest import RFConfig, rf_predict
 from ..ops.acquisition import acquisition_fn, gei
+from ..ops.ehvi import ehvi, qehvi
 from ..ops.optimize import maximize_restarts
 from .cma import best_per_group, run_cma
 from .mies import MIESSpec, run_mies
@@ -76,6 +85,14 @@ def _inject_seeds(x0: torch.Tensor, x0_seed) -> torch.Tensor:
 
 _PCA_KEYS = ("_pca_C", "_pca_offset", "_box_lo", "_box_hi", "_red_lo", "_red_hi")
 _PRIOR_KEYS = ("_prior_state", "_prior_depth")
+# the multi-objective criteria's hypercells and qEHVI's samples: one value
+# for every lane, whatever its shape
+_MO_KEYS = ("cell_lower", "cell_upper", "eps")
+
+
+def _shared(key: str) -> bool:
+    """Whether a parameter is shared by every lane (never per-lane)."""
+    return key.startswith("_") or key in _MO_KEYS
 
 
 def make_unit_criterion(
@@ -93,7 +110,8 @@ def make_unit_criterion(
     posterior -> acquisition. Larger is better. A parameter may be a
     per-lane tensor (L,); `idx` (P,) then names the lanes of U's rows
     (L-BFGS evaluates only the live lanes), and without it U has all L.
-    Reserved "_" parameters are never indexed by lane.
+    Shared parameters (reserved "_" ones, the hypercells, qEHVI's samples)
+    are never indexed by lane.
 
     constraints: optional `ConstraintProgram`; its dynamic penalty is
     subtracted from the criterion (ref parity: the `Penalized` wrapper of
@@ -105,11 +123,6 @@ def make_unit_criterion(
     prior_state = reserved.get("_prior_state")
     prior_config = None if prior_state is None else RFConfig(max_depth=int(reserved["_prior_depth"]))
     acq_params = {k: v for k, v in acq_params.items() if not k.startswith("_")}
-    if acq_name.startswith("GEI"):
-        # the improvement order rides in the name ("GEI3"), as in the JAX package
-        fn = partial(gei, g=int(acq_name[3:] or 2))
-    else:
-        fn = acquisition_fn(acq_name)
 
     def apply_penalty(value: torch.Tensor, U2d: torch.Tensor) -> torch.Tensor:
         """value (P,) minus the dynamic penalty of unit rows (P', dim), P' an
@@ -137,8 +150,43 @@ def make_unit_criterion(
             mu = mu + rf_predict(prior_state, E, prior_config)[0].reshape(mu.shape)
         return mu, var
 
+    def subst_fixed(U: torch.Tensor) -> torch.Tensor:
+        return U if fixed_mask is None else torch.where(fixed_mask[None, :] > 0, fixed_vals[None, :], U)
+
+    if acq_name == "EHVI":
+        def crit(U: torch.Tensor, idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+            Uf = subst_fixed(U)
+            mu, var = moments(encoding.unit_to_embed(Uf))  # (P, m), maximization-oriented
+            value = ehvi(mu, var.clamp_min(0.0).sqrt(), acq_params["cell_lower"],
+                         acq_params["cell_upper"])
+            return apply_penalty(value, Uf)
+
+        return crit
+
+    if acq_name.startswith("qEHVI"):
+        q = int(acq_name[5:] or 1)  # the joint batch size rides in the name ("qEHVI4")
+
+        def crit(U: torch.Tensor, idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+            # U: (P, q * dim) joint candidates on the replicated space; its
+            # embedding is the concatenation of q per-copy blocks
+            P = U.shape[0]
+            Uf = subst_fixed(U)
+            mu, var = moments(encoding.unit_to_embed(Uf).reshape(P * q, -1))
+            value = qehvi(mu.reshape(P, q, -1), var.clamp_min(0.0).sqrt().reshape(P, q, -1),
+                          acq_params["cell_lower"], acq_params["cell_upper"], acq_params["eps"])
+            # per-copy constraint penalties summed over the q block
+            return apply_penalty(value, Uf.reshape(P * q, -1))
+
+        return crit
+
+    if acq_name.startswith("GEI"):
+        # the improvement order rides in the name ("GEI3"), as in the JAX package
+        fn = partial(gei, g=int(acq_name[3:] or 2))
+    else:
+        fn = acquisition_fn(acq_name)
+
     def crit(U: torch.Tensor, idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-        Uf = U if fixed_mask is None else torch.where(fixed_mask[None, :] > 0, fixed_vals[None, :], U)
+        Uf = subst_fixed(U)
         mu, var = moments(encoding.unit_to_embed(Uf))
         mu0, sd0 = mu[:, 0], torch.sqrt(var[:, 0].clamp_min(0.0))
         if not minimize:
@@ -162,8 +210,14 @@ def _select_feasible(constraints, X, F, x_fallback, f_fallback, groups: int = 1)
     (groups,); or (dim,) and () for one group), the penalized best
     (ref parity: optim/__init__.py:124-126 feasibility filter). Masking is
     per group, so one criterion's feasible lanes never stand in for
-    another's. Returns ((groups, dim), (groups,))."""
-    feas = constraints.feasible_in_program(X)
+    another's. On a q-replicated space (a joint-q criterion's X is
+    (P, q * dim)) a lane is feasible when all its copies are. Returns
+    ((groups, dim), (groups,))."""
+    d = constraints.encoding.dim
+    if X.shape[-1] != d:  # a q-replicated space: every copy must be feasible
+        feas = constraints.feasible_in_program(X.reshape(-1, d)).reshape(X.shape[0], -1).all(1)
+    else:
+        feas = constraints.feasible_in_program(X)
     masked = torch.where(feas, F, torch.full_like(F, -math.inf))
     xb, fb = best_per_group(X, masked, groups, largest=True)
     any_f = feas.reshape(groups, -1).any(1)
@@ -324,12 +378,13 @@ class AcquisitionArgmax:
     def _lane_params(self, acq_params: Dict, reps: int = 1) -> Dict:
         """Parameters as tensors on the device; a list of q values becomes a
         per-lane vector, each value repeated for its criterion's `reps`
-        lanes. Reserved "_" parameters are shared by every lane, as they are."""
+        lanes. Shared parameters (reserved "_" ones, the hypercells and
+        qEHVI's samples) pass to every lane as they are."""
         def one(k, v):
             if k in _PRIOR_KEYS:  # a prior's forest passes unchanged
                 return v
             t = torch.as_tensor(np.asarray(v, dtype=np.float64), dtype=self.encoding.dtype)
-            return (t.repeat_interleave(reps) if t.ndim and not k.startswith("_") else t).to(self.device)
+            return (t.repeat_interleave(reps) if t.ndim and not _shared(k) else t).to(self.device)
 
         return {k: one(k, v) for k, v in acq_params.items()}
 
@@ -367,13 +422,14 @@ class AcquisitionArgmax:
         keys = set(acq_params_list[0])
         if any(set(p) != keys for p in acq_params_list):
             raise ValueError("all parameter dicts must share the same keys")
-        shared = {k: acq_params_list[0][k] for k in keys if k.startswith("_")}
+        shared = {k: acq_params_list[0][k] for k in keys if _shared(k)}
         if any(p[k] is not v and (k == "_prior_state" or not np.array_equal(np.asarray(p[k]),
                                                                              np.asarray(v)))
                for p in acq_params_list for k, v in shared.items()):
-            raise ValueError("reserved '_' parameters must be the same for every criterion")
+            raise ValueError("shared parameters (reserved '_' ones, hypercells, samples) must be "
+                             "the same for every criterion")
         P = {"BFGS": self.n_restart}.get(self.method, self.n_chains)
-        lanes = {k: [p[k] for p in acq_params_list] for k in keys if not k.startswith("_")}
+        lanes = {k: [p[k] for p in acq_params_list] for k in keys if not _shared(k)}
         params = self._lane_params({**lanes, **shared}, reps=P)
         us, vals = self._run(state, config, acq_name, params, q, minimize, fixed, x0_seed,
                              batch=True)

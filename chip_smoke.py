@@ -7,10 +7,11 @@ non-zero, and no phase's exception is caught:
   1. device: require a Hopper GPU; print its name, power limit and versions;
   2. build: compile the hand-written kernels of csrc/ (nvcc, sm_90a);
   3. each kernel against its plain PyTorch twin on the card, at the main
-     path's shapes (whiten_fused also at ragged blocks of n <= 128 and at
-     the hybrid factorisation's panel shape, and both kernels at the
-     samplers' 8-chain and the ensemble predict's shapes, chol_inv_whiten
-     at the stacked state's): max error against the stated
+     path's shapes (whiten_fused also at ragged blocks of n <= 128, at
+     the hybrid factorisation's panel shape and with the multi-output
+     fits' 3 and 4 right-hand sides, and both kernels at the samplers'
+     8-chain and the ensemble predict's shapes, chol_inv_whiten at the
+     stacked state's): max error against the stated
      tolerance, and both times (ms per call by CUDA events around 10 calls,
      median of 7 windows; ms on the device from the profiler, a session that
      traced no kernel retried, "not measured" if every try was empty: the
@@ -97,12 +98,28 @@ non-zero, and no phase's exception is caught:
      start and away from them, its criterion against the CPU path's; (g)
      ConditionalBO (30 evaluations) and BO with a RandomForest on parity
      config 4 (40 evaluations), regret below the DoE's;
-each of phases 4, 7-13's paths zeroes the launch counters just before it
+ 14. the multi-objective paths, on f_k(x) = |x - c_k|^2 over [0, 1]^d (the
+     bi-sphere, c = 0.2 and 0.8; the tri-sphere, c = 0.2, 0.5, 0.8): (a)
+     MOBO at n=1000, d=5: the 2-output fit and the BFGS EHVI argmax (25
+     restarts), a cold ask, 2 warm-ups and 3 timed iterations (refit +
+     ask), trips, the front, cells and hypervolume, one argmax profiled;
+     the winner at least its best start; the card's EHVI at the winner and
+     at 64 points against the CPU path in float64 (within 1e-4, or 10 times
+     the CPU float32 path's own error); (b) MOBO_qEHVI's joint ask, q=4, on
+     the CMA engine over the 20-dimensional replicated space: walls,
+     evaluations, launches an evaluation, peak memory, qEHVI at the winner
+     against the CPU path on the same samples; (c) MOBO on the tri-sphere
+     at n=300 (cells, the host partition's seconds, the ask), and the WFG
+     hypervolume at m=3 and 4 against the grid (1e-10); (d) MOBO end to end
+     in d=2 with the GP, with a 30-tree RandomForest and under an
+     inequality: each final front's hypervolume above its DoE's, every
+     constrained point feasible;
+each of phases 4, 7-14's paths zeroes the launch counters just before it
 and reads them just after, and fails if a kernel of its path did not
 launch (the Matern forward on every GP path, its backward on the batched
 BFGS, the mixed fit, the samplers, every phase-12 path, the derivatives
-and the NonparametricTrend path, its second derivative on the Hessians,
-the factorisation on the fits), or, on
+and the NonparametricTrend path, the MO asks, its second derivative on
+the Hessians, the factorisation on the fits), or, on
 the float64 fit, if any kernel launched. The forest's paths run no
 hand-written kernel: their counts are printed. Then the kernels' JSON line
 (with the batch and engine paths' shapes and every path's launches), the
@@ -126,19 +143,25 @@ import torch
 from torch.autograd import DeviceType
 
 from bayesian_optimization_tpu_torch import (
-    BO, PCABO, AcquisitionArgmax, ConditionalBO, ConstraintProgram, DiscreteSpace, GaussianProcess,
-    IntegerSpace, NonparametricTrend, ParallelBO, RandomForest, RealSpace, SearchSpace,
-    constant_trend, fmin, require_cuda,
+    BO, MOBO, PCABO, AcquisitionArgmax, ConditionalBO, ConstraintProgram, DiscreteSpace,
+    GaussianProcess, IntegerSpace, MOBO_qEHVI, NonparametricTrend, ParallelBO, RandomForest,
+    RealSpace, SearchSpace, constant_trend, fmin, require_cuda,
 )
+from bayesian_optimization_tpu_torch.native import wfg_hypervolume
 from bayesian_optimization_tpu_torch.core.bo import _sample_t
 from bayesian_optimization_tpu_torch.models import effective_sample_size
 from bayesian_optimization_tpu_torch.models import gp as gp_module
 from bayesian_optimization_tpu_torch.models.hmc import Draws, _Chains, _nuts_step, _value_and_grad
-from bayesian_optimization_tpu_torch.models.likelihood import PIV_TOL, GPConfig, neg_log_likelihood
+from bayesian_optimization_tpu_torch.models.likelihood import (
+    PIV_TOL, GPConfig, neg_log_likelihood, predict_gp, trend_basis,
+)
 from bayesian_optimization_tpu_torch.models.random_forest import RFState, rf_predict
 from bayesian_optimization_tpu_torch.optim import argmax as argmax_module
 from bayesian_optimization_tpu_torch.optim.argmax import make_unit_criterion
 from bayesian_optimization_tpu_torch.ops import _build
+from bayesian_optimization_tpu_torch.ops.box_decomposition import NondominatedPartitioning
+from bayesian_optimization_tpu_torch.ops.ehvi import QEHVI_N_SAMPLES, ehvi
+from bayesian_optimization_tpu_torch.ops.hypervolume import _hv_grid
 from bayesian_optimization_tpu_torch.space import Discrete, Integer, Real
 from bayesian_optimization_tpu_torch.ops.hopper_kernels import (
     _nu_code, matern_bwd2_fused, matern_bwd2_plain, matern_bwd_fused, matern_bwd_plain,
@@ -163,6 +186,12 @@ SOLVE_OWN_TOL = 1e-5    # a solver's own error in whiten's VJP, relative, at con
 # where the CPU float32 path's NLL is 1.55e-4 off float64 (PERF.md): the
 # card's within twice that
 MIXED_NLL_F64_TOL = 3e-4
+# EHVI on the near-interpolating multi-output posteriors of phase 14: the
+# float32 predict's mean is ~7e-5 off float64 where sigma is ~1e-3, which
+# moves EHVI by ~3e-3 of its largest value on the CPU float32 path itself;
+# the card is held to float64 within 1e-4, or within this many times the CPU
+# float32 path's own error where that is larger
+MO_F32_FACTOR = 10.0
 # cuBLAS trsm in one profiled NUTS refit before the backward used Dinv: ms and
 # leapfrogs (PERF.md section 5)
 TRSM_REFIT_MS, TRSM_REFIT_LEAPFROGS = 2873.07, 433
@@ -195,14 +224,16 @@ MATERN_SHAPES = (("cold ladder rung 1", 10, 256, None, DIM), ("cold ladder rung 
                  ("ensemble predict, argmax trip", 8, 25, 1024, DIM),
                  ("config 6 fit, bucket 16", 10, 16, None, 2),
                  ("config 6 argmax trip", 1, 10, 16, 2),
-                 ("config 5 argmax trip, bucket 64", 1, 25, 64, DIM))
+                 ("config 5 argmax trip, bucket 64", 1, 25, 64, DIM),
+                 ("qEHVI CMA generation, 80 chains x q=4", 1, 320, 1024, DIM))
 NEW_SHAPES = ("batched BFGS trip, q=8 x 25", "CMA/SMC generation", "MIES generation, 5 restarts",
               "MIES generation, 6 restarts", "config 3 fit, bucket 16", "config 3 fit, bucket 64",
               "config 4 fit, bucket 16", "config 4 fit, bucket 64", "mixed fit rung 1",
               "mixed fit rung 2", "mixed fit final", "mixed posterior state",
               "CMA fit on the mixed space", "sampler leapfrog, warm-up subset",
               "sampler leapfrog, ensemble state", "ensemble predict, argmax trip",
-              "config 6 fit, bucket 16", "config 6 argmax trip", "config 5 argmax trip, bucket 64")
+              "config 6 fit, bucket 16", "config 6 argmax trip", "config 5 argmax trip, bucket 64",
+              "qEHVI CMA generation, 80 chains x q=4")
 
 
 def log(msg: str) -> None:
@@ -630,13 +661,17 @@ def check_whiten():
     worst absolute error, the (2, 1024) numbers and the rows of the
     samplers' 8-chain shapes."""
     worst, head, rows = 0.0, None, []
-    # (batch, n): the MLE ladder's lanes at each bucket/rung size, ragged
-    # blocks (any n <= 128 is one block of width n), and the samplers' 8
-    # chains on the n/4 warm-up subset and on all rows
-    for batch, n in ((10, 16), (10, 37), (10, 64), (10, 100), (2, 128), (10, 256), (6, 512),
-                     (2, 1024), (10, 1024), (8, 256), (8, 1024)):
+    # (batch, n, right-hand sides): the MLE ladder's lanes at each
+    # bucket/rung size, ragged blocks (any n <= 128 is one block of width
+    # n), and the samplers' 8 chains on the n/4 warm-up subset and on all
+    # rows, with y and the constant trend (2); then the multi-output fits'
+    # rungs: m objectives and the trend (m + 1 = 3 and 4)
+    for batch, n, mb in ((10, 16, 2), (10, 37, 2), (10, 64, 2), (10, 100, 2), (2, 128, 2),
+                         (10, 256, 2), (6, 512, 2), (2, 1024, 2), (10, 1024, 2), (8, 256, 2),
+                         (8, 1024, 2), (10, 256, 3), (6, 512, 3), (2, 1024, 3), (10, 512, 4),
+                         (2, 1024, 4)):
         R = kernel_like(batch, n, seed=n + batch)
-        B = torch.randn((batch, n, 2), device="cuda", generator=torch.Generator(device="cuda").manual_seed(n))
+        B = torch.randn((batch, n, mb), device="cuda", generator=torch.Generator(device="cuda").manual_seed(n))
         R_before = R.clone()
         d, W, piv, L, Dinv = whiten_fused(R, B)
         torch.cuda.synchronize()
@@ -650,20 +685,21 @@ def check_whiten():
         d_k = device_ms(lambda: whiten_fused(R, B))
         d_p = device_ms(lambda: whiten_plain(R, B))
         b_ms, b_by = whiten_bound(batch, n, B.shape[-1])
-        log(f"  whiten_fused ({batch}, {n}, {n}): relerr L {errL:.3e} (tol {WHITEN_L_TOL}), "
+        log(f"  whiten_fused ({batch}, {n}, {n}) x {mb} right-hand sides: relerr L {errL:.3e} (tol {WHITEN_L_TOL}), "
             f"W {errW:.3e} (tol {WHITEN_W_TOL}), min piv {float(piv.min()):.3e}; "
             f"kernel {t_k:.4f} ms/call ({fmt(d_k)} ms on the device), bound {b_ms:.4f} ms "
             f"({b_by}), share of bound {fmt(ratio(b_ms, d_k), '.3f')}; "
             f"twin {t_p:.4f} ms/call ({fmt(d_p)} ms on the device)")
         assert errL < WHITEN_L_TOL and errW < WHITEN_W_TOL, (n, errL, errW)
         assert bool((piv > 0).all()) and Dinv.shape == Dinv0.shape
-        if batch == 8:  # "shape" [batch, n, n, right-hand sides]
-            rows.append(shape_row(f"sampler leapfrog, {n} rows", batch, n, None, B.shape[-1],
+        if batch == 8 or mb > 2:  # "shape" [batch, n, n, right-hand sides]
+            label = f"sampler leapfrog, {n} rows" if batch == 8 else f"{mb - 1}-output fit, {n} rows"
+            rows.append(shape_row(label, batch, n, None, mb,
                                   max(float((L - L0).abs().max()), float((W - W0).abs().max())),
                                   t_k, t_p, b_ms, b_by, d_k, d_p))
-        if n == 1024:
+        if n == 1024 and mb == 2:
             log_whiten_split(f"({batch}, {n}, {n})", whiten_split(lambda: whiten_fused(R, B)), n // 128)
-        if (batch, n) == (2, 1024):
+        if (batch, n, mb) == (2, 1024, 2):
             # no single PyTorch call computes (L, W, Dinv, piv); the Cholesky
             # alone is a subset of the work, timed as a yardstick only
             t_c = time_ms(lambda: torch.linalg.cholesky_ex(R))
@@ -1764,9 +1800,11 @@ def chol_and_inv_check(paths: dict):
 
     t_k, t_p = time_ms(lambda: chol_and_inv(R)), time_ms(plain)
     d_k, d_p = device_ms(lambda: chol_and_inv(R)), device_ms(plain)
+    b_ms, b_by = chol_inv_bound(1, 1024, 0)
     log(f"[13] (d) chol_and_inv at n=1024: L rel err {err_l:.3e} (tol {WHITEN_L_TOL}), L^-1 rel err "
         f"{err_i:.3e} (tol {CHOL_INV_TOL}) against the CPU twin; {t_k:.4f} ms a call "
-        f"({fmt(d_k)} ms on the device), the plain twin on the card {t_p:.4f} ms ({fmt(d_p)} ms); "
+        f"({fmt(d_k)} ms on the device), bound {b_ms:.4f} ms ({b_by}), share of bound "
+        f"{fmt(ratio(b_ms, d_k), '.3f')}; the plain twin on the card {t_p:.4f} ms ({fmt(d_p)} ms); "
         f"min pivot {float(piv):.3e}; counters {c}")
     assert c["whiten_fused"] == 1 and err_l < WHITEN_L_TOL and err_i < CHOL_INV_TOL and float(piv) > 0
 
@@ -1901,6 +1939,215 @@ def conditional_and_rf_bo(paths: dict):
         f"{REF_RF_REGRETS[0]}-{REF_RF_REGRETS[1]}) at {rf_bo.xopt.tolist()[0]}, {rf_bo.eval_count} "
         f"evaluations in {wall:.2f} s; counters {paths['rf_bo_parity_config_4']}")
     assert rf_bo.eval_count == 40 and rf_bo.fopt < doe
+
+
+# phase 14's objectives: f_k(x) = ||x - c_k||^2 on [0, 1]^d, centers at these
+# levels (the bi- and tri-sphere)
+BI_SPHERE, TRI_SPHERE = (0.2, 0.8), (0.2, 0.5, 0.8)
+
+
+def spheres(levels):
+    """The objective callables of a multi-sphere, one a center level."""
+    return [lambda x, c=c: float(np.sum((np.asarray(x, dtype=float) - c) ** 2)) for c in levels]
+
+
+def sphere_data(n: int, d: int, levels, seed: int):
+    """n uniform points of [0, 1]^d from the seed and their objectives (n, m)."""
+    X = np.random.default_rng(seed).uniform(0, 1, (n, d))
+    return X, np.stack([((X - c) ** 2).sum(1) for c in levels], axis=1)
+
+
+def mo_optimizer(cls, levels, d: int = DIM, **kw):
+    return cls(search_space=RealSpace([[0.0, 1.0]] * d, random_seed=0), obj_fun=spheres(levels),
+               n_obj=len(levels), random_seed=0, **kw)
+
+
+def front_line(opt) -> str:
+    part = opt._partition()
+    return (f"front {len(part.pareto_Y)} of {opt.data.N} points, {len(part.cell_lower)} cells, "
+            f"hypervolume {opt._last_hv:.6f}")
+
+
+def mobo_ask(paths: dict):
+    """14a: MOBO's ask at full width: 1000 bi-sphere observations told at
+    once (the cold 2-output fit), one cold ask, then 2 warm-ups and 3 timed
+    iterations of a warm refit plus the ask (partition on the host, the BFGS
+    EHVI argmax with 25 restarts); one argmax profiled; the card's EHVI at
+    the winner and at 64 random points against the CPU path in float64."""
+    X, F = sphere_data(1000, DIM, BI_SPHERE, seed=14)
+    opt = mo_optimizer(MOBO, BI_SPHERE, DoE_size=10, max_FEs=10 ** 6)
+    assert opt._argmax.method == "BFGS" and opt._argmax.n_restart == 25
+    reset_launch_counts()
+    _, cold_fit = timed(lambda: opt.tell(X.tolist(), F))
+    gp = opt.model
+    _, cold_ask = timed(opt.ask)
+    reps = []
+    for _ in range(5):
+        _, fit_s = timed(opt.update_model)
+        c0 = counts()
+        _, ask_s = timed(opt.ask)
+        reps.append((fit_s, ask_s, counts()["matern_fused_bwd"] - c0["matern_fused_bwd"]))
+    c = paths["mobo_ehvi_ask"] = counts()
+    assert live(c), c
+    _, part_s = timed(opt._partition)
+    t = reps[2:]
+    log(f"[14] (a) MOBO ask, n=1000 d=5 bi-sphere (2-output GP, whiten_fused mb=3): cold fit "
+        f"{cold_fit:.4f} s, cold ask {cold_ask:.4f} s; warm refit {[round(f, 4) for f, _, _ in t]} s, "
+        f"ask {[round(a, 4) for _, a, _ in t]} s (median fit + ask "
+        f"{statistics.median([f + a for f, a, _ in t]):.4f} s); L-BFGS trips an ask "
+        f"{[n for _, _, n in t]}, ms a trip {[round(a / n * 1e3, 2) for _, a, n in t]}; the "
+        f"partition alone {part_s * 1e3:.2f} ms (host); {front_line(opt)}; log-likelihood "
+        f"{gp.log_likelihood_:.4f}; counters over the {len(reps) + 1} iterations {c}")
+    am, enc = opt._argmax, opt.encoding
+    par = opt._acq_par_defaults({})
+    pool_state = am._gen.get_state()
+    c0 = counts()
+    (Xw, vals), dev_ms, n_k, wall_p = profiled(lambda: opt.arg_max_acquisition(return_value=True))
+    trips = counts()["matern_fused_bwd"] - c0["matern_fused_bwd"]
+    u, v = np.asarray(Xw[0], dtype=float), float(vals[0])
+    log(f"  one argmax profiled: {trips} trips, {fmt(n_k, 'g')} launches, {fmt(ratio(n_k, trips), '.1f')} "
+        f"a trip, {fmt(dev_ms, '.2f')} ms on the device, {wall_p:.4f} s with the profiler on (idle share "
+        f"{fmt(idle_share(dev_ms, wall_p), '.3f')}); EHVI {v:.6e} at {np.round(u, 4).tolist()}")
+    # the card's criterion at the pool of starts the argmax drew and at 64 points
+    starts = torch.rand((1, am.n_restart, DIM), generator=torch.Generator().set_state(pool_state))[0]
+    crit = make_unit_criterion(enc, gp.posterior, gp.config, "EHVI", am._lane_params(par))
+    U64 = np.random.default_rng(15).uniform(0, 1, (64, DIM))
+    with torch.no_grad():
+        at_starts = crit(starts.to(opt.device)).cpu().double().numpy()
+        at_64 = crit(torch.tensor(U64, dtype=torch.float32, device=opt.device)).cpu().double().numpy()
+    log(f"  EHVI at its best start {at_starts.max():.6e}, at the winner {v:.6e}")
+    assert v >= at_starts.max(), (v, at_starts.max())
+    check_mo_f32("EHVI at 64 random points", at_64, *(cpu_values(gp, enc, "EHVI", par, U64, dtype=dt)
+                                                      for dt in (torch.float32, torch.float64)))
+    # what limits float32 there: the posterior's moments at the 64 points,
+    # the card's state carried to the CPU in float32 and in float64
+    (mu32, sd32), (mu64, sd64) = (cpu_moments(gp, U64, dt) for dt in (torch.float32, torch.float64))
+    cells = [torch.tensor(par[k], dtype=torch.float64) for k in ("cell_lower", "cell_upper")]
+    e64 = ehvi(mu64, sd64, *cells)
+
+    def off(e):
+        return float((e - e64).abs().max() / e64.abs().max())
+
+    log(f"  the float32 posterior there against float64: mean max abs err "
+        f"{float((mu32 - mu64).abs().max()):.3e}, sigma max rel err "
+        f"{float(((sd32 - sd64).abs() / sd64).max()):.3e}, sigma {float(sd64.min()):.3e}-"
+        f"{float(sd64.max()):.3e}; EHVI from the float32 mean alone {off(ehvi(mu32, sd64, *cells)):.3e} of "
+        f"its largest value, from the float32 sigma alone {off(ehvi(mu64, sd32, *cells)):.3e}")
+    check_mo_f32("EHVI at the winner", [v], *(cpu_values(gp, enc, "EHVI", par, u, dtype=dt)
+                                              for dt in (torch.float32, torch.float64)))
+    return X, F
+
+
+def cpu_moments(gp, U, dtype):
+    """(mu, sigma) in float64 of a GP's state carried to the CPU in dtype,
+    at unit points U of a [0, 1]^d space."""
+    state = type(gp.posterior)(*(t.cpu().to(dtype) for t in gp.posterior))
+    E = torch.tensor(U, dtype=dtype)
+    mu, var = predict_gp(state, E, trend_basis(gp.config, E), gp.config, True)
+    return mu.double(), var.clamp_min(0.0).sqrt().double()
+
+
+def check_mo_f32(label, values, cpu32, cpu64) -> None:
+    """A multi-objective criterion on the card against the CPU path in
+    float64, by the largest error over the largest value: within 1e-4, or
+    within MO_F32_FACTOR times the CPU float32 path's own error."""
+    values, scale = np.asarray(values, dtype=float), float(np.abs(cpu64).max())
+    err, err_cpu = (float(np.abs(a - cpu64).max()) / scale for a in (values, cpu32))
+    tol = max(1e-4, MO_F32_FACTOR * err_cpu)
+    log(f"  {label} (largest {scale:.4e}) against the CPU path in float64, max abs err over the "
+        f"largest value: the card {err:.3e} (tol {tol:.3e}), the CPU float32 path {err_cpu:.3e}")
+    assert np.all(np.isfinite(values)) and err < tol, (label, values, cpu32, cpu64)
+
+
+def mobo_qehvi_ask(X, F, paths: dict):
+    """14b: MOBO_qEHVI's joint ask, q = 4, on 14a's 1000 observations: the
+    CMA engine on the 20-dimensional replicated space (80 chains); a cold
+    and a warm ask, one joint argmax profiled, peak device memory; the
+    card's qEHVI at the winner against the CPU path on the same samples."""
+    q = 4
+    opt = mo_optimizer(MOBO_qEHVI, BI_SPHERE, DoE_size=10, max_FEs=10 ** 6, n_point=q)
+    reset_launch_counts()
+    _, fit_s = timed(lambda: opt.tell(X.tolist(), F))
+    gp = opt.model
+    torch.cuda.reset_peak_memory_stats()
+    Xq, cold = timed(opt.ask)
+    _, warm = timed(opt.ask)
+    c = paths["mobo_qehvi_ask"] = counts()
+    assert live(c), c
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    am = opt._q_argmax(q)
+    par = opt._qehvi_par(q)
+    c0 = counts()
+    (u, v), dev_ms, n_k, wall_p = profiled(lambda: am(gp.posterior, gp.config, f"qEHVI{q}", par))
+    evals = counts()["matern_fused"] - c0["matern_fused"]  # one cross-covariance an evaluation
+    log(f"[14] (b) MOBO_qEHVI, q={q}, n=1000: cold fit {fit_s:.4f} s, ask cold {cold:.4f} s, warm "
+        f"{warm:.4f} s ({am.n_chains} chains x {am.n_generations} generations on the "
+        f"{am.encoding.dim}-dimensional replicated space, {QEHVI_N_SAMPLES} samples); {len(Xq)} points; "
+        f"peak device memory over the asks "
+        f"{peak:.1f} MiB; one joint argmax profiled: {evals} criterion evaluations, {fmt(n_k, 'g')} "
+        f"launches, {fmt(ratio(n_k, evals), '.1f')} an evaluation, {fmt(dev_ms, '.2f')} ms on the device, "
+        f"{wall_p:.4f} s with the profiler on (idle share {fmt(idle_share(dev_ms, wall_p), '.3f')}); "
+        f"qEHVI {v:.6e}; counters over the fit and the two asks {c}")
+    assert len(Xq) == q and all(len(x) == DIM for x in Xq)
+    par_np = {k: np.asarray(t) for k, t in par.items()}
+    check_mo_f32(f"qEHVI{q} at the winner, same samples", [v],
+                 *(cpu_values(gp, am.encoding, f"qEHVI{q}", par_np, u, dtype=dt)
+                   for dt in (torch.float32, torch.float64)))
+
+
+def mobo_three_objectives(paths: dict):
+    """14c: MOBO on the tri-sphere at n = 300 (3-output GP, whiten_fused
+    mb = 4): cells, the partition's host seconds, the argmax's wall; then
+    the port's WFG hypervolume at m = 3 and 4 against the grid."""
+    X, F = sphere_data(300, DIM, TRI_SPHERE, seed=16)
+    opt = mo_optimizer(MOBO, TRI_SPHERE, DoE_size=10, max_FEs=10 ** 6)
+    reset_launch_counts()
+    _, fit_s = timed(lambda: opt.tell(X.tolist(), F))
+    part, part_s = timed(opt._partition)
+    Xa, ask_s = timed(opt.ask)
+    c = paths["mobo_m3_ask"] = counts()
+    assert live(c) and len(Xa) == 1, c
+    log(f"[14] (c) MOBO, m=3 tri-sphere, n=300: fit {fit_s:.4f} s, partition {part_s:.4f} s (host, "
+        f"{len(part.cell_lower)} cells), ask {ask_s:.4f} s; {front_line(opt)}; counters {c}")
+    rng = np.random.default_rng(17)
+    for m, n in ((3, 30), (4, 12)):
+        Y = rng.uniform(0.1, 1.0, (n, m))
+        (hv_w, t_w), (hv_g, t_g) = timed(lambda: wfg_hypervolume(Y, np.zeros(m))), \
+            timed(lambda: _hv_grid(Y, np.zeros(m)))
+        rel = abs(hv_w - hv_g) / hv_g
+        log(f"  WFG hypervolume, {n} points, m={m}: {hv_w:.12f} in {t_w * 1e3:.2f} ms, the grid "
+            f"{hv_g:.12f} in {t_g * 1e3:.2f} ms, rel err {rel:.3e} (tol 1e-10)")
+        assert rel < 1e-10
+
+
+def mobo_end_to_end(paths: dict):
+    """14d: MOBO runs on the bi-sphere in d = 2, seed 0: with the GP (DoE
+    10, 30 objective evaluations), with a 30-tree RandomForest (MIES over a
+    multi-output forest, DoE 6, 20 evaluations) and under an inequality
+    x0 + x1 <= 1 (DoE 6, 24 evaluations); each front's hypervolume on the
+    final normalization against its DoE's, every constrained point
+    feasible."""
+    def run(label, key, **kw):
+        opt = mo_optimizer(MOBO, BI_SPHERE, d=2, **kw)
+        reset_launch_counts()
+        _, wall = timed(opt.run)
+        paths[key] = counts()
+        doe = NondominatedPartitioning(opt.ref_point, opt.y[:kw["DoE_size"]]).compute_hypervolume()
+        log(f"  (d) {label}: {opt.data.N} points, {opt.eval_count} objective evaluations in {wall:.2f} s; "
+            f"{front_line(opt)} (the DoE's {doe:.6f}); counters {paths[key]}")
+        assert opt._last_hv > doe and opt.eval_count == kw["max_FEs"]
+        return opt
+
+    log("[14] (d) MOBO end to end, bi-sphere, d=2, seed 0")
+    run("GP, EHVI on BFGS", "mobo_e2e", DoE_size=10, max_FEs=30)
+    rf = run("30-tree RandomForest, EHVI on MIES", "mobo_rf_e2e", DoE_size=6, max_FEs=20,
+             model=RandomForest(n_estimators=30, random_state=0, feature_space="embedding"))
+    assert rf._argmax.method == "MIES"
+    con = run("GP under x0 + x1 <= 1", "mobo_constrained_e2e", DoE_size=6, max_FEs=24,
+              ineq_fun=lambda x: x[0] + x[1] - 1.0)
+    V = np.asarray(con.data.values, dtype=float)
+    log(f"  (d) constrained: largest x0 + x1 of a told point {float(V.sum(1).max()):.6f} (<= 1)")
+    assert float(V.sum(1).max()) <= 1.0 + 1e-6
 
 
 def ptxas_summary(log_text: str):
@@ -2063,6 +2310,16 @@ def main() -> None:
     nonparametric_trend_path(X, y, paths)
     stamp("phase 13g")
     conditional_and_rf_bo(paths)
+
+    # 14. the multi-objective paths
+    stamp("phase 14")
+    X_mo, F_mo = mobo_ask(paths)
+    stamp("phase 14b")
+    mobo_qehvi_ask(X_mo, F_mo, paths)
+    stamp("phase 14c")
+    mobo_three_objectives(paths)
+    stamp("phase 14d")
+    mobo_end_to_end(paths)
     log(f"  profiler sessions: {PROFILER_SESSIONS['run']}, of which {PROFILER_SESSIONS['empty']} traced "
         f"no kernel")
 

@@ -715,3 +715,83 @@ def test_gradient_and_hessian_on_the_card(dev):
         Hd, Hc = gp.Hessian(x, of=of), cpu.Hessian(x, of=of)
         assert matern_fused.bwd2_launches == before + 3
         assert np.abs(Hd - Hc).max() <= 1e-3 * np.abs(Hc).max()
+
+
+@pytest.mark.parametrize("mb", [3, 4])
+@pytest.mark.parametrize("batch, n", [(10, 256), (6, 512), (2, 1024), (1, 1024)])
+def test_whiten_kernel_multi_output_rhs(dev, batch, n, mb):
+    """A multi-output fit's right-hand sides: m objectives and the constant
+    trend, mb = m + 1 = 3 and 4 (rows [n, n + mb) of the workspace)."""
+    R = torch.tensor(_kernel_like(n, batch, seed=n + mb), device=dev)
+    B = torch.tensor(np.random.default_rng(mb).standard_normal((batch, n, mb)), dtype=torch.float32,
+                     device=dev)
+    _check_whiten(R, B)
+
+
+def _mo_problem(n, d, levels, seed):
+    X = np.random.default_rng(seed).uniform(0, 1, (n, d))
+    F = np.stack([((X - c) ** 2).sum(1) for c in levels], axis=1)
+    return X, -(F - F.min(0)) / (F.max(0) - F.min(0))
+
+
+@pytest.mark.parametrize("m", [2, 3])
+def test_ehvi_and_qehvi_on_the_card(dev, m):
+    """EHVI and qEHVI on float32 card tensors against the CPU in float64,
+    with their gradient in mu."""
+    from bayesian_optimization_tpu_torch.ops.box_decomposition import NondominatedPartitioning
+    from bayesian_optimization_tpu_torch.ops.ehvi import ehvi, qehvi
+
+    _, y = _mo_problem(200, 3, np.linspace(0.2, 0.8, m), 0)
+    part = NondominatedPartitioning(y.min(0) * 0.8 - 1e-6, y)
+    r = np.random.default_rng(1)
+    mu, sd = r.uniform(-0.6, 0.1, (64, m)), r.uniform(0.01, 0.2, (64, m))
+    eps = r.standard_normal((256, 3, m))
+
+    def run(device, dtype):
+        t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+        mu_t = t(mu).requires_grad_(True)
+        e = ehvi(mu_t, t(sd), t(part.cell_lower), t(part.cell_upper))
+        (g,) = torch.autograd.grad(e.sum(), mu_t)
+        qv = qehvi(t(mu[:48].reshape(16, 3, m)), t(sd[:48].reshape(16, 3, m)), t(part.cell_lower),
+                   t(part.cell_upper), t(eps))
+        return [a.detach().double().cpu().numpy() for a in (e, g, qv)]
+
+    for got, want in zip(run(dev, torch.float32), run("cpu", torch.float64)):
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_mobo_asks_on_the_card(dev):
+    """One MOBO ask (2-output GP, BFGS EHVI) and one MOBO_qEHVI ask (q = 2,
+    CMA) on the card: every kernel of the fit launches, and the card's
+    criterion at each winner is the CPU path's in float64 within 1e-4, or
+    within 10 times the CPU float32 path's own error where that is larger
+    (this near-interpolating posterior's float32 mean is what limits it)."""
+    from bayesian_optimization_tpu_torch import MOBO, MOBO_qEHVI, RealSpace
+    from bayesian_optimization_tpu_torch.optim.argmax import make_unit_criterion
+    from bayesian_optimization_tpu_torch.ops.hopper_kernels import reset_launch_counts
+
+    X = np.random.default_rng(2).uniform(0, 1, (80, 3))
+    F = np.c_[((X - 0.2) ** 2).sum(1), ((X - 0.8) ** 2).sum(1)]
+    for cls, q in ((MOBO, 1), (MOBO_qEHVI, 2)):
+        opt = cls(search_space=RealSpace([[0.0, 1.0]] * 3, random_seed=0), n_obj=2, n_point=q,
+                  DoE_size=10, max_FEs=10 ** 4, random_seed=0, device=dev)
+        reset_launch_counts()
+        opt.tell(X.tolist(), F)
+        assert matern_fused.bwd_launches > 0 and whiten_fused.launches > 0
+        if q == 1:
+            par, am, name = opt._acq_par_defaults({}), opt._argmax, "EHVI"
+        else:
+            par, am, name = opt._qehvi_par(q), opt._q_argmax(q), f"qEHVI{q}"
+        u, v = am(opt.model.posterior, opt.model.config, name, par)
+        cpu = {}
+        for dt in (torch.float32, torch.float64):
+            post = type(opt.model.posterior)(*(t.cpu().to(dt) for t in opt.model.posterior))
+            crit = make_unit_criterion(type(am.encoding)(am.encoding.space, dtype=dt), post,
+                                       opt.model.config, name,
+                                       {k: torch.tensor(np.asarray(x), dtype=dt) for k, x in par.items()})
+            with torch.no_grad():
+                cpu[dt] = float(crit(torch.tensor(u[None], dtype=dt))[0])
+        want = cpu[torch.float64]
+        tol = max(1e-4, 10 * abs(cpu[torch.float32] - want) / abs(want))
+        assert v > 0 and abs(v - want) <= tol * abs(want), (name, v, cpu)
+        assert len(opt.ask()) == q
