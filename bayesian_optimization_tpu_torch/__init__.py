@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of bayesian_optimization_tpu for one NVIDIA H100.
 
-The same public names as the JAX package, for the slices ported so far:
+The same public names as the JAX package, and everything it does:
 `fmin` (n_point >= 1), `BO` and the batch flavors `ParallelBO`,
 `AnnealingBO`, `SelfAdaptiveBO`, `NoisyBO`, `MultiAcquisitionBO` on real and
 mixed spaces, with equality/inequality constraints (`eq_fun`/`ineq_fun`,
@@ -11,7 +11,10 @@ MLE, or an HMC/NUTS/VI ensemble; float32 or float64; `gradient`/`Hessian`;
 a `NonparametricTrend` prior), the `RandomForest` grown on the device (no
 scikit-learn) and `SurrogateAggregation`, the criteria EI, PI, EpsilonPI,
 UCB, MGFI, GEI, EHVI and qEHVI, and the `AcquisitionArgmax` with its BFGS, CMA, SMC and
-MIES engines. Each kernel the JAX
+MIES engines; particle meshes and `torch.distributed` (`parallel/`, `mesh=`
+on BO and the argmax), the ask/tell HTTP service and its daemon
+(`service/`, `simple_http_server`), and the entry points
+(`entry.py`). Each kernel the JAX
 package wrote in Pallas for the TPU is a CUDA kernel written by hand for
 Hopper (csrc/), built at first use. Public constructors take `device=`
 (default "cuda") and raise when no suitable GPU is present; tests pass

@@ -41,12 +41,19 @@ def require_cuda() -> None:
         )
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, mesh=None) -> torch.device:
     """torch.device for a public constructor's `device=` argument; a CUDA
-    device must pass `require_cuda`."""
+    device must pass `require_cuda`. With a particle mesh (parallel/mesh.py)
+    the device is the mesh's first device of this process, and `device`
+    must name it."""
     dev = torch.device(device)
     if dev.type == "cuda":
         require_cuda()
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}; expected 'cuda' or 'cpu'")
+    if mesh is not None:
+        named = torch.device("cuda", dev.index or 0) if dev.type == "cuda" else dev
+        if named != mesh.device:
+            raise ValueError(f"device {device!r} is not the mesh's first device {mesh.device}")
+        return mesh.device
     return dev

@@ -22,8 +22,9 @@ CMA engine. The surrogate may also be the port's `RandomForest` (the
 argmax then runs MIES when "auto"), or a GP under a `NonparametricTrend`,
 whose wrapped forest is refit on the standardized targets at every tell and
 rides into the criterion. Batch proposals are `ParallelBO`'s (core/bo.py):
-`BaseBO` raises for n_point > 1, as the JAX package does. Not ported yet
-(they raise): particle meshes.
+`BaseBO` raises for n_point > 1, as the JAX package does. A particle mesh
+(`mesh=`, parallel/mesh.py) shards the acquisition argmax's pool; the BO's
+device is then the mesh's first device.
 """
 from __future__ import annotations
 
@@ -202,9 +203,10 @@ class BaseBO(BaseOptimizer):
         device=DEFAULT_DEVICE,
         **kwargs,
     ):
-        if mesh is not None:
-            raise NotImplementedError("particle meshes are not ported to the GPU package yet")
-        self.device = resolve_device(device)
+        # mesh: optional ParticleMesh; shards the acquisition argmax's
+        # populations across its devices
+        self._mesh = mesh
+        self.device = resolve_device(device, mesh)
         super().__init__(search_space, **kwargs)
         self.n_point = max(1, int(n_point))
         self.data_file = data_file
@@ -345,6 +347,7 @@ class BaseBO(BaseOptimizer):
             n_restart=opts.get("n_restart"),
             max_FEs=opts.get("max_FEs"),
             seed=(self.random_seed or 0) + 17,
+            mesh=getattr(self, "_mesh", None),
             constraints=self._constraints,
             device=self.device,
         )
@@ -648,15 +651,18 @@ class BaseBO(BaseOptimizer):
 
         os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
         logger, argmax, constraints = self.logger, self._argmax, self._constraints
+        mesh = getattr(self, "_mesh", None)
         try:
             self.logger = None
             self._argmax = None  # rebuilt on load
+            self._mesh = None  # devices are not pickled; a loaded BO runs unsharded
             self._constraints = None  # rebuilt from h/g on load
             with open(filename, "wb") as f:
                 dill.dump(self, f)
         finally:
             self.logger = logger
             self._argmax = argmax
+            self._mesh = mesh
             self._constraints = constraints
 
     @classmethod

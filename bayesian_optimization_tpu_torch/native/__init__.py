@@ -16,6 +16,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -32,19 +33,25 @@ def library_path() -> Path:
     return _BUILD_DIR / f"libwfg_{h.hexdigest()[:16]}.so"
 
 
+# serializes the first build among a process's threads; across processes
+# the scratch name and the atomic rename keep builds apart
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Compile (if needed) and load the WFG library; raises on failure."""
     so = library_path()
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
-        out = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(_SRC)],
-                             capture_output=True, text=True)
-        if out.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"g++ failed to build {_SRC.name}:\n{out.stdout}{out.stderr}")
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    with _BUILD_LOCK:
+        if not so.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
+            out = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(_SRC)],
+                                 capture_output=True, text=True)
+            if out.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"g++ failed to build {_SRC.name}:\n{out.stdout}{out.stderr}")
+            os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     lib = ctypes.CDLL(str(so))
     lib.wfg_hypervolume.restype = ctypes.c_double
     lib.wfg_hypervolume.argtypes = [_DOUBLE_P, ctypes.c_int, ctypes.c_int, _DOUBLE_P]

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -68,40 +69,51 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbotorch_kernels_{h.hexdigest()[:16]}.so"
 
 
+# serializes the first build among a process's threads (two jobs of the
+# threaded service can reach a first launch at once); across processes the
+# scratch names and the atomic rename keep builds apart
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library; raises on failure."""
     so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tag = f"{so.stem}.{os.getpid()}"
-        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
-        procs = [
-            subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(_sources(), objs)
-        ]
-        outs = [p.communicate()[0] for p in procs]
-        tmp = BUILD_DIR / f"{tag}.tmp"
-        link = None
-        if all(p.returncode == 0 for p in procs):
-            link = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
-                capture_output=True, text=True,
-            )
-            outs.append(link.stdout + link.stderr)
-        so.with_suffix(".log").write_text("".join(outs))
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-        if link is None or link.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + "".join(outs))
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    with _BUILD_LOCK:
+        if not so.exists():
+            _build(so)
     lib = ctypes.CDLL(str(so))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = restype
     return lib
+
+
+def _build(so: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}.{threading.get_ident()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    procs = [
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(_sources(), objs)
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    link = None
+    if all(p.returncode == 0 for p in procs):
+        link = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        outs.append(link.stdout + link.stderr)
+    so.with_suffix(".log").write_text("".join(outs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link is None or link.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + "".join(outs))
+    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
 
 
 def build_log() -> str:

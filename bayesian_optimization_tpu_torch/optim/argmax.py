@@ -47,7 +47,17 @@ reshaped to P * q rows for one predict, then `qehvi` over the P lanes on
 fixed standard-normal samples, minus the per-copy penalties summed. Their
 parameters `cell_lower`, `cell_upper` (K, m) and `eps` (S, q, m) are shared
 by every lane, as the reserved ones are: never repeated or indexed by lane.
-Not ported yet (it raises): meshes.
+
+A `mesh` (parallel/mesh.py) shards the BFGS, CMA and SMC pools of a single
+criterion, as the JAX package does (MIES and `batch` run unsharded, on the
+mesh's first device): the pool is padded with zeros to a multiple of the
+mesh size, the posterior and parameters are copied to each entry's device
+once a call, and each entry runs its lanes' whole engine loop there. The
+chains' draws are taken for the whole padded population from the one
+generator and handed out by rows, so a lane draws what it draws unsharded.
+The lanes meet once, in one gather of the final population before the
+best-of-population reduce; SMC's resampling, which permutes the whole chain
+axis, also gathers once a round.
 """
 from __future__ import annotations
 
@@ -64,6 +74,7 @@ from ..models.random_forest import RFConfig, rf_predict
 from ..ops.acquisition import acquisition_fn, gei
 from ..ops.ehvi import ehvi, qehvi
 from ..ops.optimize import maximize_restarts
+from ..parallel.mesh import ParticleMesh, as_population, replicated, shard_population
 from .cma import best_per_group, run_cma
 from .mies import MIESSpec, run_mies
 from .smc import run_smc
@@ -225,17 +236,30 @@ def _select_feasible(constraints, X, F, x_fallback, f_fallback, groups: int = 1)
     return torch.where(any_f[:, None], xb, xf), torch.where(any_f, fb, ff)
 
 
+def _bfgs_lanes(crit, x0, max_iter: int):
+    """Every lane's end (x, value) of one batched L-BFGS from x0. x0 and
+    `crit` are as `run_cma` takes them: each mesh entry runs its lanes on
+    its device (the lanes are independent), then one gather."""
+    pop = as_population(x0)
+
+    def lanes(crit, x):
+        zeros = torch.zeros(x.shape[-1], dtype=x.dtype, device=x.device)
+        res = maximize_restarts(crit, x, zeros, zeros + 1.0, max_iter=max_iter, lane_index=True)
+        return res.x, res.fun
+
+    ends = pop.mesh.map(lanes, pop.mesh.per_entry(crit), pop.chunks)
+    return tuple(pop.mesh.gather([e[0] for e in ends], [e[1] for e in ends]))
+
+
 def _bfgs_argmax(crit, x0, q: int, max_iter: int, constraints=None):
     """q criteria x R restarts (x0 (q * R, d)) as one batched L-BFGS;
     returns each criterion's winner and value, (q, d) and (q,)."""
-    dim = x0.shape[-1]
-    zeros = torch.zeros(dim, dtype=x0.dtype, device=x0.device)
-    res = maximize_restarts(crit, x0, zeros, zeros + 1.0, max_iter=max_iter, lane_index=True)
+    x, f = _bfgs_lanes(crit, x0, max_iter)
     # non-finite lanes are +inf in the minimization, so -inf here
-    xb, fb = best_per_group(res.x, res.fun, q, largest=True)
+    xb, fb = best_per_group(x, f, q, largest=True)
     if constraints is not None:
         with torch.no_grad():
-            xb, fb = _select_feasible(constraints, res.x, res.fun, xb, fb, q)
+            xb, fb = _select_feasible(constraints, x, f, xb, fb, q)
     return xb, fb
 
 
@@ -249,22 +273,22 @@ def _es_select(constraints, xb, fb, xs, fs, q: int):
     return xb, -fb
 
 
+def _negated(crits):
+    return [lambda U, crit=crit: -crit(U) for crit in crits]
+
+
+# the ES engines' box is the unit cube, as numbers: a bound carries no device
 @torch.no_grad()
-def _cma_argmax(gen, crit, x0, q: int, n_generations: int, constraints=None):
-    dim = x0.shape[-1]
-    zeros = torch.zeros(dim, dtype=x0.dtype, device=x0.device)
-    _, _, xs, fs = run_cma(gen, lambda U: -crit(U), x0, zeros, zeros + 1.0, n_generations)
+def _cma_argmax(gen, crits, x0, q: int, n_generations: int, constraints=None):
+    _, _, xs, fs = run_cma(gen, _negated(crits), x0, 0.0, 1.0, n_generations)
     xb, fb = best_per_group(xs, fs, q, largest=False)
     return _es_select(constraints, xb, fb, xs, fs, q)
 
 
 @torch.no_grad()
-def _smc_argmax(gen, crit, x0, q: int, n_rounds: int, n_moves: int, constraints=None):
-    dim = x0.shape[-1]
-    zeros = torch.zeros(dim, dtype=x0.dtype, device=x0.device)
-    xb, fb, xs, fs = run_smc(gen, lambda U: -crit(U), x0, zeros, zeros + 1.0, n_rounds, n_moves,
-                             groups=q)
-    return _es_select(constraints, xb.reshape(q, dim), fb.reshape(q), xs, fs, q)
+def _smc_argmax(gen, crits, x0, q: int, n_rounds: int, n_moves: int, constraints=None):
+    xb, fb, xs, fs = run_smc(gen, _negated(crits), x0, 0.0, 1.0, n_rounds, n_moves, groups=q)
+    return _es_select(constraints, xb.reshape(q, -1), fb.reshape(q), xs, fs, q)
 
 
 @torch.no_grad()
@@ -303,9 +327,8 @@ class AcquisitionArgmax:
         constraints=None,
         device=DEFAULT_DEVICE,
     ):
-        self.device = resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError("meshes are not ported to the GPU package yet")
+        self.device = resolve_device(device, mesh)
+        self.mesh = mesh
         self.constraints = constraints
         self.encoding = encoding
         dim = encoding.dim
@@ -351,25 +374,34 @@ class AcquisitionArgmax:
              batch: bool):
         """Every engine on q criteria whose parameters are per-lane tensors
         (numbers outside a batch); returns (u (q, dim) on the host, values (q,))."""
+        if self.method == "BFGS" and isinstance(config, RFConfig):
+            raise ValueError("the BFGS engine needs a gradient, and a random forest's "
+                             "criterion is piecewise constant: use MIES, CMA or SMC")
         fixed_mask, fixed_vals = self._fixed(fixed)
         cons = self.constraints
-        crit = make_unit_criterion(self.encoding, state, config, acq_name, params, minimize,
-                                   fixed_mask, fixed_vals, cons)
+        # a single criterion's BFGS, CMA or SMC pool shards over the mesh;
+        # MIES and batches run as the one-entry mesh on self.device
+        sharded = self.mesh is not None and not batch and self.method != "MIES"
+        mesh = self.mesh if sharded else ParticleMesh([self.device])
+        # the posterior, parameters and fixed values: one copy a device a call
+        put = replicated(mesh).put
+        crits = [make_unit_criterion(self.encoding, s, config, acq_name, p, minimize, fm, fv, cons)
+                 for s, p, fm, fv in zip(put(state), put(params), put(fixed_mask), put(fixed_vals))]
+
+        def pool(P):
+            return shard_population(self._pool(q, P, x0_seed), mesh)
+
         if self.method == "BFGS":
-            if isinstance(config, RFConfig):
-                raise ValueError("the BFGS engine needs a gradient, and a random forest's "
-                                 "criterion is piecewise constant: use MIES, CMA or SMC")
-            us, vals = _bfgs_argmax(crit, self._pool(q, self.n_restart, x0_seed), q, self.max_iter,
-                                    cons)
+            us, vals = _bfgs_argmax(crits, pool(self.n_restart), q, self.max_iter, cons)
         elif self.method == "SMC":
-            us, vals = _smc_argmax(self._chain_gen(), crit, self._pool(q, self.n_chains, x0_seed),
-                                   q, self.n_smc_rounds, self.n_smc_moves, cons)
+            us, vals = _smc_argmax(self._chain_gen(), crits, pool(self.n_chains), q,
+                                   self.n_smc_rounds, self.n_smc_moves, cons)
         elif self.method == "MIES" and not batch:
-            us, vals = _mies_argmax(self._chain_gen(), crit, self._spec, self.n_mies_restarts,
+            us, vals = _mies_argmax(self._chain_gen(), crits[0], self._spec, self.n_mies_restarts,
                                     self.n_mies_generations, self.encoding.dtype, self.device, cons)
         else:  # the CMA engine; a batch under MIES runs it too, as in the JAX package
-            us, vals = _cma_argmax(self._chain_gen(), crit, self._pool(q, self.n_chains, x0_seed),
-                                   q, self.n_generations, cons)
+            us, vals = _cma_argmax(self._chain_gen(), crits, pool(self.n_chains), q,
+                                   self.n_generations, cons)
         if fixed_mask is not None:
             us = torch.where(fixed_mask > 0, fixed_vals, us)
         us = self.encoding.quantize_unit(us).clamp(0.0, 1.0)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .._device import DEFAULT_DEVICE, resolve_device
+from ..parallel.mesh import as_population
 from ..utils.expr import evaluate_size
 from ..utils.penalty import reflect_into_box, violation_host
 
@@ -81,17 +82,10 @@ def best_per_group(x: torch.Tensor, f: torch.Tensor, groups: int, largest: bool 
     return x.reshape(groups, f.shape[1], -1)[rows, i], f[rows, i]
 
 
-def cma_step(state: CMAState, fun: Callable, lo, hi, consts: dict) -> CMAState:
-    """One (1+1) generation for every chain; `fun` maps (P, d) -> (P,)
-    objective values to MINIMIZE."""
-    state, x_new = _host_propose(state, lo, hi)
-    return _host_generation(state, x_new, fun(x_new), consts, lo, hi)
-
-
 def run_cma(
     gen: torch.Generator,
-    fun: Callable,
-    x0: torch.Tensor,
+    fun,
+    x0,
     lo,
     hi,
     n_generations: int,
@@ -99,13 +93,43 @@ def run_cma(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Minimize `fun` ((P, d) -> (P,)) with P parallel (1+1)-Cholesky
     chains; returns (x_best[d], f_best, x_final[P, d], f_final[P]) after
-    `n_generations`."""
-    consts = _constants(x0.shape[-1])
-    state = init_chains(gen, x0, _finite_or_inf(fun(x0)), sigma0)
-    for _ in range(n_generations):
-        state = cma_step(state, fun, lo, hi, consts)
-    best = torch.argmin(state.f)
-    return state.x[best], state.f[best], state.x, state.f
+    `n_generations`.
+
+    x0 is a (P, d) tensor or a `ShardedPopulation` (parallel/mesh.py),
+    `fun` one objective or one per local mesh entry; a tensor runs as the
+    one-entry mesh on its device. Each entry runs its chains' whole loop on
+    its device. Every generation's draw is taken for the whole padded
+    population from the one generator and each entry gets its rows, so a
+    chain draws what it draws unsharded. The chains meet once, in the
+    gather of the final population."""
+    pop = as_population(x0)
+    mesh = pop.mesh
+    consts = _constants(pop.shape[-1])
+    zs = mesh.split(draw_noise(gen, n_generations, pop.shape, pop.chunks[0].dtype), dim=1)
+
+    def one(fun, x, z):
+        state = init_chains(gen, x, _finite_or_inf(fun(x)), sigma0)
+        return run_generations(state, fun, lo, hi, consts, z)
+
+    states = mesh.map(one, mesh.per_entry(fun), pop.chunks, zs)
+    x, f = mesh.gather([s.x for s in states], [s.f for s in states])
+    best = torch.argmin(f)
+    return x[best], f[best], x, f
+
+
+def draw_noise(gen: torch.Generator, n: int, shape, dtype) -> torch.Tensor:
+    """(n, *shape) standard normal draws, n generations' worth, taken from
+    `gen` one generation at a time."""
+    return torch.stack([torch.randn(shape, generator=gen, dtype=dtype, device=gen.device)
+                        for _ in range(n)])
+
+
+def run_generations(state: CMAState, fun: Callable, lo, hi, consts: dict, zs) -> CMAState:
+    """len(zs) generations of every chain from the given draws zs (n, P, d)."""
+    for z in zs:
+        state, x_new = _host_propose(state, lo, hi, z)
+        state = _host_generation(state, x_new, fun(x_new), consts, lo, hi)
+    return state
 
 
 def _host_propose(state: CMAState, lo, hi, z: Optional[torch.Tensor] = None):

@@ -15,11 +15,15 @@ tests hand it the JAX package's draw.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from .cma import CMAState, _constants, _finite_or_inf, best_per_group, cma_step, init_chains
+from ..parallel.mesh import as_population
+from .cma import (
+    CMAState, _constants, _finite_or_inf, best_per_group, draw_noise, init_chains,
+    run_generations,
+)
 
 
 def systematic_resample(gen: Optional[torch.Generator], log_w: torch.Tensor,
@@ -51,10 +55,15 @@ def resample_chains(gen: Optional[torch.Generator], state: CMAState, rho, groups
     return CMAState(*(a[idx] for a in state[:-1]), gen=state.gen)
 
 
+def _rho(rho0: float, rho_growth: float, rnd: int, dtype) -> float:
+    """The annealing ladder's rho in round rnd, in the chains' dtype."""
+    return float(torch.tensor(rho0, dtype=dtype) * torch.tensor(rho_growth, dtype=dtype) ** rnd)
+
+
 def run_smc(
     gen: torch.Generator,
-    fun: Callable,
-    x0: torch.Tensor,
+    fun,
+    x0,
     lo,
     hi,
     n_rounds: int,
@@ -67,31 +76,47 @@ def run_smc(
     """Minimize `fun` ((P, d) -> (P,)) with P CMA chains resampled between
     move blocks; returns (x_best, f_best, x_final, f_final). With groups=1,
     x_best is (d,) and f_best a scalar; otherwise (groups, d) and (groups,),
-    the best of each population."""
-    consts = _constants(x0.shape[-1])
-    state = init_chains(gen, x0, _finite_or_inf(fun(x0)), sigma0)
+    the best of each population.
 
-    def move_block(state):
-        for _ in range(n_moves):
-            state = cma_step(state, fun, lo, hi, consts)
-        return state
+    x0 and `fun` are as `run_cma` takes them: each mesh entry runs its
+    chains' move blocks on its device, from draws taken for the whole
+    padded population from the one generator. Resampling permutes the whole
+    chain axis: once a round the chain states are gathered, resampled where
+    they land and split again -- the collective of the JAX program -- and
+    one last gather ends the run, so a run gathers n_rounds + 1 times (the
+    initial states ride in the first)."""
+    pop = as_population(x0)
+    mesh = pop.mesh
+    consts = _constants(pop.shape[-1])
+    dtype = pop.chunks[0].dtype
+    funs = mesh.per_entry(fun)
+    n_fields = len(CMAState._fields) - 1
 
-    best_x, best_f = best_per_group(state.x, state.f, groups)
-    for rnd in range(n_rounds):
-        state = move_block(state)
-        xi, fi = best_per_group(state.x, state.f, groups)
+    def move_block(states):
+        zs = mesh.split(draw_noise(gen, n_moves, pop.shape, dtype), dim=1)
+        return mesh.map(lambda st, fun, z: run_generations(st, fun, lo, hi, consts, z),
+                        states, funs, zs)
+
+    states = mesh.map(lambda fun, x: init_chains(gen, x, _finite_or_inf(fun(x)), sigma0),
+                      funs, pop.chunks)
+    init = ([s.x for s in states], [s.f for s in states])
+    for rnd in range(n_rounds + 1):
+        states = move_block(states)
+        out = mesh.gather(*([s[i] for s in states] for i in range(n_fields)),
+                          *(init if rnd == 0 else ()))
+        full = CMAState(*out[:n_fields], gen=gen)
+        if rnd == 0:
+            best_x, best_f = best_per_group(out[n_fields], out[n_fields + 1], groups)
+        xi, fi = best_per_group(full.x, full.f, groups)
         better = fi < best_f
         best_x = torch.where(better[:, None], xi, best_x)
         best_f = torch.where(better, fi, best_f)
-        rho = torch.tensor(rho0, dtype=x0.dtype) * torch.tensor(rho_growth, dtype=x0.dtype) ** rnd
-        state = resample_chains(gen, state, float(rho), groups)
-    # the final move block runs un-resampled so the last exploitation
-    # sweep's improvements are kept
-    state = move_block(state)
-    xi, fi = best_per_group(state.x, state.f, groups)
-    better = fi < best_f
-    best_x = torch.where(better[:, None], xi, best_x)
-    best_f = torch.where(better, fi, best_f)
+        if rnd == n_rounds:
+            # the final move block runs un-resampled so the last
+            # exploitation sweep's improvements are kept
+            break
+        full = resample_chains(gen, full, _rho(rho0, rho_growth, rnd, dtype), groups)
+        states = [CMAState(*fields, gen=gen) for fields in zip(*(mesh.split(a) for a in full[:-1]))]
     if groups == 1:
-        return best_x[0], best_f[0], state.x, state.f
-    return best_x, best_f, state.x, state.f
+        return best_x[0], best_f[0], full.x, full.f
+    return best_x, best_f, full.x, full.f

@@ -114,7 +114,25 @@ non-zero, and no phase's exception is caught:
      in d=2 with the GP, with a 30-tree RandomForest and under an
      inequality: each final front's hypervolume above its DoE's, every
      constrained point feasible;
-each of phases 4, 7-14's paths zeroes the launch counters just before it
+ 15. the ask/tell service, the particle mesh and the entry points: (a) the
+     HTTP service in this process (device cuda) on bench.py's domain
+     [0, 1]^5: the DoE ask, one tell of bench.py's 1000 points (a cold fit
+     at n=1000) and the BFGS EI ask, walls beside the same tell and ask on
+     the service object in this process, in three alternating pairs (the
+     gap: HTTP and JSON), and phase 4's; every kernel launched, the point in
+     the box, recommend's fopt the smallest told y, status and finalize;
+     any reply carrying "error" fails; (b) a ParallelBO job (q=4) and a
+     mixed-space (MIES) job at once from two client threads, 3 rounds each;
+     (c) the daemon (`-d --device cuda`) in a subprocess: health, one job's
+     ask/tell/ask, stop by its pidfile, the pid gone and the pidfile
+     removed (a `finally` kills that exact pid); (d) the default mesh's BFGS
+     EI argmax on phase 4's posterior against the unsharded one from one
+     pool (identical on one card), and the BFGS, CMA and SMC engines on a
+     2-entry mesh over cuda:0 against the unsharded engine on the same
+     padded pool and generator (winner within 1e-4, lanes that part
+     printed), with the mesh's gathers; (e) entry() on the card against
+     the CPU path and dryrun_multidevice(2) on ["cuda:0"] * 2;
+each of phases 4, 7-15's paths zeroes the launch counters just before it
 and reads them just after, and fails if a kernel of its path did not
 launch (the Matern forward on every GP path, its backward on the batched
 BFGS, the mixed fit, the samplers, every phase-12 path, the derivatives
@@ -132,11 +150,17 @@ its FP32 operations over 67 TFLOP/s (an H100 SXM's published peaks).
 """
 import json
 import math
+import os
 import re
+import signal
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -148,6 +172,12 @@ from bayesian_optimization_tpu_torch import (
     RealSpace, SearchSpace, constant_trend, fmin, require_cuda,
 )
 from bayesian_optimization_tpu_torch.native import wfg_hypervolume
+from bayesian_optimization_tpu_torch.entry import dryrun_multidevice, entry
+from bayesian_optimization_tpu_torch.optim.cma import run_cma
+from bayesian_optimization_tpu_torch.optim.smc import run_smc
+from bayesian_optimization_tpu_torch.parallel import make_particle_mesh, shard_population
+from bayesian_optimization_tpu_torch.service import daemon
+from bayesian_optimization_tpu_torch.service.http_server import pidfile_for, serve
 from bayesian_optimization_tpu_torch.core.bo import _sample_t
 from bayesian_optimization_tpu_torch.models import effective_sample_size
 from bayesian_optimization_tpu_torch.models import gp as gp_module
@@ -2150,6 +2180,321 @@ def mobo_end_to_end(paths: dict):
     assert float(V.sum(1).max()) <= 1.0 + 1e-6
 
 
+# ------------------------------------------------------------------ phase 15
+REPO = os.path.dirname(os.path.abspath(__file__))
+DEV = "cuda"  # phase 15's device (the CPU only to debug the phase off the card)
+
+
+def http(url: str, payload=None) -> dict:
+    """One request (POST when payload is given); a reply carrying "error"
+    (the handler's 4xx/5xx for any exception) fails the phase."""
+    req = url if payload is None else urllib.request.Request(
+        url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        raise AssertionError(f"{url}: HTTP {e.code} {e.read().decode()}") from e
+    assert "error" not in out, (url, out)
+    return out
+
+
+def rows(X) -> list:
+    return [{f"x{j}": float(v) for j, v in enumerate(r)} for r in np.atleast_2d(X)]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def pid_gone(pid: int) -> bool:
+    """Whether pid no longer runs (absent, or a zombie nobody reaped)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+BOX5 = {"x": {"type": "r", "range": [-5, 5], "N": DIM}}
+# bench.py's domain: the job's unit cube holds phase 4's X. On [-5, 5]^5
+# these points fill a tenth of each axis, the EI is flat wherever a start
+# lands and the ask returns the pool's first start unmoved.
+UNIT5 = {"x": {"type": "r", "range": [0, 1], "N": DIM}}
+MIXED_PARAM = {"r": {"type": "r", "range": [-3, 3], "N": 2}, "i": {"type": "i", "range": [0, 10]},
+               "c": {"type": "c", "range": ["A", "B", "C"]}}
+
+
+def service_bench(url: str, service, cold, parts, paths: dict):
+    """(a) one job at bench size: DoE ask, a tell of 1000 points, the ask;
+    then the same job's tell and ask over HTTP and on the service object in
+    this process, in three pairs that alternate which side runs first, so
+    that the walls' gap is what HTTP and JSON cost."""
+    create = {"search_param": UNIT5, "bo_param": {"DoE_size": 5, "max_iter": 2000, "random_seed": 0}}
+    X, y = bench_raw(1000)
+    told = {"X": rows(X), "y": y.tolist()}
+
+    def over_http():
+        job = http(url, create)["job_id"]
+        assert len(http(f"{url}/?ask=null&job_id={job}")["X"]) == 5
+        reset_launch_counts()
+        ack, tell_s = timed(lambda: http(url, {"job_id": job, **told}))
+        out, ask_s = timed(lambda: http(f"{url}/?ask=null&job_id={job}"))
+        return job, ack, out["X"], counts(), tell_s, ask_s
+
+    def on_object():
+        job = service.create(create)["job_id"]
+        assert len(service.ask(job)["X"]) == 5
+        _, tell_s = timed(lambda: service.tell({"job_id": job, **told}))
+        out, ask_s = timed(lambda: service.ask(job))
+        assert service.finalize(job)["finalized"]
+        return job, None, out["X"], None, tell_s, ask_s
+
+    job, ack, asked, c, tell_s, ask_s = over_http()
+    paths["service_bench"] = c
+    assert live(c), c
+    u = np.array([[x[f"x{j}"] for j in range(DIM)] for x in asked])
+    assert u.shape == (1, DIM) and np.all((u >= 0) & (u <= 1)), u
+    rec = http(f"{url}/?recommend=null&job_id={job}")
+    assert rec["fopt"] == [float(y.min())], (rec["fopt"], float(y.min()))
+    st = http(f"{url}/?status=null&job_id={job}")["job"]
+    assert st["eval_count"] == len(X) and st["fopt"] == float(y.min()), st
+    assert http(f"{url}/?finalize=null&job_id={job}")["finalized"]
+    runs = {"HTTP": [(tell_s, ask_s)], "object": []}
+    points = [asked]
+    for side in ("object", "object", "HTTP", "HTTP", "object"):
+        job_i, _, pts, _, t, a = (over_http if side == "HTTP" else on_object)()
+        if side == "HTTP":
+            assert http(f"{url}/?finalize=null&job_id={job_i}")["finalized"]
+        runs[side].append((t, a))
+        points.append(pts)
+    t0 = time.perf_counter()
+    json.loads(json.dumps({"job_id": job, **told}))
+    json_s = time.perf_counter() - t0
+    med = {side: [statistics.median(w[i] for w in ws) for i in (0, 1)] for side, ws in runs.items()}
+    fit4 = statistics.median([f for f, _ in parts])
+    arg4 = statistics.median([a for _, a in parts])
+    log(f"[15] (a) the service (device cuda, in this process) on [0, 1]^5, n=1000: tell (1000 dict "
+        f"rows, the cold fit) over HTTP {[round(t, 4) for t, _ in runs['HTTP']]} s, on the service "
+        f"object {[round(t, 4) for t, _ in runs['object']]} s (medians {med['HTTP'][0]:.4f} and "
+        f"{med['object'][0]:.4f}, gap {med['HTTP'][0] - med['object'][0]:+.4f} s); ask (the BFGS EI "
+        f"argmax) over HTTP {[round(a, 4) for _, a in runs['HTTP']]} s, on the object "
+        f"{[round(a, 4) for _, a in runs['object']]} s (medians {med['HTTP'][1]:.4f} and "
+        f"{med['object'][1]:.4f}, gap {med['HTTP'][1] - med['object'][1]:+.4f} s); the pairs ran HTTP "
+        f"first, then the object first, then HTTP first; JSON encode + decode of the tell "
+        f"{json_s * 1e3:.2f} ms; every job asked the same point {all(p == asked for p in points)}; "
+        f"phase 4's warm fit {fit4:.4f} s and argmax {arg4:.4f} s (medians), its cold fit "
+        f"{cold[0]:.4f} s; n={len(X)}, iteration {ack['iteration']}, asked {np.round(u[0], 4).tolist()}, "
+        f"recommend fopt {rec['fopt'][0]:.6f}; counters of the first tell + ask over HTTP {c}")
+    return tell_s, ask_s
+
+
+def service_two_jobs(url: str, paths: dict):
+    """(b) a ParallelBO job and a mixed-space job at once, 3 rounds each."""
+    def parallel_obj(x):
+        return sphere([x[f"x{j}"] for j in range(DIM)])
+
+    def mixed(x):
+        return mixed_obj([x["r0"], x["r1"], x["i"], x["c"]])
+
+    jobs = {"ParallelBO q=4": (BOX5, {"n_point": 4, "DoE_size": 8, "max_iter": 10, "random_seed": 0},
+                               parallel_obj),
+            "mixed (MIES)": (MIXED_PARAM, {"DoE_size": 8, "max_iter": 10, "random_seed": 0}, mixed)}
+    results, errors = {}, []
+
+    def client(name):
+        try:
+            space, bo, f = jobs[name]
+            job = http(url, {"search_param": space, "bo_param": bo})["job_id"]
+            t0, sizes = time.perf_counter(), []
+            for _ in range(3):
+                X = http(f"{url}/?ask=null&job_id={job}")["X"]
+                sizes.append(len(X))
+                http(url, {"job_id": job, "X": X, "y": [f(x) for x in X]})
+            rec = http(f"{url}/?recommend=null&job_id={job}")
+            http(f"{url}/?finalize=null&job_id={job}")
+            results[name] = (time.perf_counter() - t0, sizes, rec["fopt"][0])
+        except BaseException as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    reset_launch_counts()
+    threads = [threading.Thread(target=client, args=(name,)) for name in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize()
+    c = paths["service_two_jobs"] = counts()
+    assert live(c), c
+    log(f"  (b) two jobs at once, 3 ask/tell rounds each: " + "; ".join(
+        f"{name}: {w:.2f} s, asks of {sizes} points, fopt {f:.6g}" for name, (w, sizes, f) in results.items())
+        + f"; counters {c}")
+    assert results["ParallelBO q=4"][1] == [8, 4, 4] and results["mixed (MIES)"][1] == [8, 1, 1], results
+
+
+def service_daemon():
+    """(c) `python -m ...simple_http_server -d --device cuda` and stop."""
+    port = free_port()
+    pidfile = pidfile_for(port)
+    assert not os.path.exists(pidfile), pidfile
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    launcher = subprocess.run([sys.executable, "-m", "bayesian_optimization_tpu_torch.simple_http_server",
+                               "-d", "--device", DEV, "-w", str(port)], env=env,
+                              capture_output=True, text=True, timeout=120)
+    assert launcher.returncode == 0, launcher.stderr
+    pid, url = None, f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            pid = pid or daemon.read_pid(pidfile)
+            try:
+                health = http(f"{url}/health")
+                break
+            except (urllib.error.URLError, ConnectionError):
+                assert time.perf_counter() - t0 < 120, "the daemon never answered"
+                time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        pid = daemon.read_pid(pidfile)
+        assert health["status"] == "ok" and pid is not None and daemon.status(pidfile)
+        job = http(url, {"search_param": {"x": {"type": "r", "range": [-5, 5], "N": 2}},
+                         "bo_param": {"DoE_size": 5, "random_seed": 0}})["job_id"]
+        t1 = time.perf_counter()
+        X = http(f"{url}/?ask=null&job_id={job}")["X"]
+        http(url, {"job_id": job, "X": X, "y": [x["x0"] ** 2 + x["x1"] ** 2 for x in X]})
+        nxt = http(f"{url}/?ask=null&job_id={job}")["X"]
+        work_s = time.perf_counter() - t1
+        assert len(nxt) == 1 and all(-5 <= v <= 5 for v in nxt[0].values()), nxt
+        assert daemon.stop(pidfile)
+        t2 = time.perf_counter()
+        while not (pid_gone(pid) and not os.path.exists(pidfile)):
+            assert time.perf_counter() - t2 < 60, "the daemon outlived SIGTERM"
+            time.sleep(0.1)
+        log(f"  (c) the daemon (pid {pid}, port {port}, pidfile {os.path.basename(pidfile)}): answered "
+            f"after {up_s:.2f} s; DoE ask + tell (a fit on the card) + ask {work_s:.2f} s, no error; "
+            f"stopped in {time.perf_counter() - t2:.2f} s, pid gone, pidfile removed")
+    finally:
+        if pid is not None and not pid_gone(pid):
+            os.kill(pid, signal.SIGKILL)  # this exact pid, never by pattern
+
+
+def mesh_checks(gp, y, paths: dict):
+    """(d) the particle mesh on the card."""
+    enc = RealSpace([[0.0, 1.0]] * DIM).encoding()
+    plugin = float(y.min())
+    mesh = make_particle_mesh()
+    pool = np.random.default_rng(9).uniform(0, 1, (25, DIM))
+    reset_launch_counts()
+    u1, v1 = AcquisitionArgmax(enc, method="BFGS", n_restart=25, seed=0, mesh=mesh, device=DEV)(
+        gp.posterior, gp.config, "EI", {"plugin": plugin}, x0_seed=pool)
+    u0, v0 = AcquisitionArgmax(enc, method="BFGS", n_restart=25, seed=0, device=DEV)(
+        gp.posterior, gp.config, "EI", {"plugin": plugin}, x0_seed=pool)
+    log(f"  (d) torch.cuda.device_count() {torch.cuda.device_count()}, default mesh size {mesh.size}: "
+        f"BFGS EI argmax on phase 4's posterior from one pool of 25, sharded {v1:.9e} at "
+        f"{np.round(u1, 6).tolist()}, unsharded {v0:.9e} at {np.round(u0, 6).tolist()}; gathers {mesh.gathers}")
+    assert mesh.gathers == 1
+    if mesh.size == 1:  # the same lanes on the same card: the same winner
+        assert np.array_equal(u1, u0) and v1 == v0, (u1, u0, v1, v0)
+    else:
+        assert abs(v1 - v0) <= 1e-4 * abs(v0), (v1, v0)
+    crit = make_unit_criterion(enc, gp.posterior, gp.config, "EI",
+                               {"plugin": torch.tensor(plugin, device=DEV)})
+    am = AcquisitionArgmax(enc, method="SMC", seed=0, device=DEV)
+    zeros = torch.zeros(DIM, device=DEV)
+
+    def neg(U):
+        return -crit(U)
+
+    def gen():
+        return torch.Generator(device=DEV).manual_seed(5)
+
+    walls = {}
+    for engine, P, want in (("BFGS", 25, 1), ("CMA", am.n_chains, 1), ("SMC", am.n_chains, am.n_smc_rounds + 1)):
+        mesh2 = make_particle_mesh(devices=[DEV] * 2)
+        x0 = torch.tensor(pool if engine == "BFGS" else np.random.default_rng(10).uniform(0, 1, (P, DIM)),
+                          dtype=torch.float32, device=DEV)
+        pop = shard_population(x0, mesh2)
+        full = torch.cat(pop.chunks)
+        with torch.no_grad():
+            if engine == "BFGS":
+                (xr, fr), t_ref = timed(lambda: argmax_module._bfgs_lanes(crit, full, 40))
+                (xs, fs), t_sh = timed(lambda: argmax_module._bfgs_lanes([crit] * 2, pop, 40))
+                best_r, best_s = float(fr.max()), float(fs.max())
+            elif engine == "CMA":
+                ref, t_ref = timed(lambda: run_cma(gen(), neg, full, zeros, zeros + 1.0, am.n_generations))
+                got, t_sh = timed(lambda: run_cma(gen(), [neg] * 2, pop, zeros, zeros + 1.0, am.n_generations))
+                (_, fr0, xr, fr), (_, fs0, xs, fs) = ref, got
+                best_r, best_s = -float(fr0), -float(fs0)
+            else:
+                ref, t_ref = timed(lambda: run_smc(gen(), neg, full, zeros, zeros + 1.0, am.n_smc_rounds,
+                                                   am.n_smc_moves))
+                got, t_sh = timed(lambda: run_smc(gen(), [neg] * 2, pop, zeros, zeros + 1.0, am.n_smc_rounds,
+                                                  am.n_smc_moves))
+                (_, fr0, xr, fr), (_, fs0, xs, fs) = ref, got
+                best_r, best_s = -float(fr0), -float(fs0)
+        lane = (fs - fr).abs() / fr.abs().clamp_min(1e-30)
+        parted = int((lane > 1e-6).sum())
+        walls[engine] = (t_ref, t_sh)
+        log(f"    2-entry mesh over cuda:0, {engine} ({pop.shape[0]} lanes from {P}): winner sharded "
+            f"{best_s:.9e}, unsharded {best_r:.9e} (rel {abs(best_s - best_r) / abs(best_r):.3e}, tol 1e-4); "
+            f"{parted} of {pop.shape[0]} lanes part by > 1e-6 relative (largest {float(lane.max()):.3e}); "
+            f"gathers {mesh2.gathers} (want {want}); {t_sh:.4f} s sharded, {t_ref:.4f} s unsharded")
+        assert mesh2.gathers == want, (engine, mesh2.gathers)
+        assert abs(best_s - best_r) <= 1e-4 * abs(best_r), (engine, best_s, best_r)
+    torch.cuda.synchronize()
+    c = paths["mesh_argmax"] = counts()
+    # an argmax factors nothing: the Matern forward and backward only
+    assert c["matern_fused"] > 0 and c["matern_fused_bwd"] > 0, c
+
+
+def entry_checks(paths: dict, grad_abs_tol: float):
+    """(e) the entry analog on the card."""
+    reset_launch_counts()
+    fn, args = entry(DEV)
+    (vals, grads), wall = timed(lambda: fn(*args))
+    c = paths["entry"] = counts()
+    assert live(c), c
+    fn_c, args_c = entry(device="cpu")
+    vals_c, grads_c = fn_c(*args_c)
+    err_v = float(((vals.cpu() - vals_c).abs() / vals_c.abs()).max())
+    abs_g = float((grads.cpu() - grads_c).abs().max())
+    err_g = abs_g / float(grads_c.abs().max())
+    # phase 4's absolute tolerance comes from n=1000's gradients, loose at
+    # n=24: the gradient is also held to phase 4's relative one
+    log(f"  (e) entry() on the card, 8 theta x (n=24 padded to 32, d=3): {wall * 1e3:.2f} ms, values "
+        f"rel err {err_v:.3e} against the CPU path (tol 1e-4), gradient abs err {abs_g:.3e} (tol "
+        f"{grad_abs_tol:.3e}, phase 4's), {err_g:.3e} relative to its largest entry (tol 1e-3); "
+        f"counters {c}")
+    assert err_v < 1e-4 and abs_g < grad_abs_tol and err_g < 1e-3, (err_v, abs_g, err_g)
+    _, dry = timed(lambda: dryrun_multidevice(2, devices=[DEV] * 2))
+    log(f"  dryrun_multidevice(2) on ['cuda:0', 'cuda:0']: {dry:.2f} s")
+
+
+def service_and_mesh(gp, y, cold, parts, paths: dict, grad_abs_tol: float):
+    """Phase 15: the service, the daemon, the mesh and the entry points."""
+    server = serve(port=0, device=DEV)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        service_bench(url, server.service, cold, parts, paths)
+        stamp("phase 15b")
+        service_two_jobs(url, paths)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    stamp("phase 15c")
+    service_daemon()
+    stamp("phase 15d")
+    mesh_checks(gp, y, paths)
+    stamp("phase 15e")
+    entry_checks(paths, grad_abs_tol)
+
+
 def ptxas_summary(log_text: str):
     """One line per kernel of the build's ptxas report: registers and spill
     bytes. Of the Matern kernels' instantiations (per feature chunk DC and
@@ -2320,6 +2665,10 @@ def main() -> None:
     mobo_three_objectives(paths)
     stamp("phase 14d")
     mobo_end_to_end(paths)
+
+    # 15. the service, the daemon, the particle mesh and the entry points
+    stamp("phase 15")
+    service_and_mesh(gp, y, cold, parts, paths, grad_abs_tol)
     log(f"  profiler sessions: {PROFILER_SESSIONS['run']}, of which {PROFILER_SESSIONS['empty']} traced "
         f"no kernel")
 

@@ -795,3 +795,55 @@ def test_mobo_asks_on_the_card(dev):
         tol = max(1e-4, 10 * abs(cpu[torch.float32] - want) / abs(want))
         assert v > 0 and abs(v - want) <= tol * abs(want), (name, v, cpu)
         assert len(opt.ask()) == q
+
+
+@pytest.mark.parametrize("method", ["BFGS", "OnePlusOne_Cholesky_CMA", "SMC"])
+def test_sharded_argmax_on_a_two_entry_mesh(dev, method):
+    """The BFGS, CMA and SMC engines with a 10-lane pool split over two
+    entries on one card (padded to 10: no zero rows), against the same
+    engine unsharded from the same pool and generator: the winner's value
+    within 1e-4 relative (float32 lanes round by batch size), the kernels
+    launched and the mesh's gathers as the CPU tests hold them."""
+    from bayesian_optimization_tpu_torch import GaussianProcess, RealSpace, constant_trend
+    from bayesian_optimization_tpu_torch.optim import argmax as am
+    from bayesian_optimization_tpu_torch.optim.cma import run_cma
+    from bayesian_optimization_tpu_torch.optim.smc import run_smc
+    from bayesian_optimization_tpu_torch.ops.hopper_kernels import reset_launch_counts
+    from bayesian_optimization_tpu_torch.parallel import make_particle_mesh, shard_population
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0, 1, (60, 3))
+    y = np.sin(3 * X).sum(1)
+    gp = GaussianProcess(mean=constant_trend(3), corr="matern", thetaL=1e-3 * np.ones(3),
+                         thetaU=1e3 * np.ones(3), nugget=1e-6, random_start=4, random_state=0,
+                         device=dev)
+    gp.fit(X, (y - y.mean()) / y.std())
+    crit = am.make_unit_criterion(RealSpace([[0.0, 1.0]] * 3).encoding(), gp.posterior, gp.config,
+                                  "EI", {"plugin": torch.tensor(-1.0, device=dev)})
+    mesh = make_particle_mesh(devices=["cuda:0"] * 2)
+    x0 = torch.rand((10, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    pop = shard_population(x0, mesh)
+    zeros = torch.zeros(3, device=dev)
+
+    def neg(U):
+        return -crit(U)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(5)
+
+    reset_launch_counts()
+    with torch.no_grad():
+        if method == "BFGS":
+            ref = am._bfgs_lanes(crit, x0, 40)[1].max()
+            got = am._bfgs_lanes([crit] * 2, pop, 40)[1].max()
+            want_gathers = 1
+        elif method == "SMC":
+            ref = -run_smc(gen(), neg, x0, zeros, zeros + 1.0, 3, 5)[1]
+            got = -run_smc(gen(), [neg] * 2, pop, zeros, zeros + 1.0, 3, 5)[1]
+            want_gathers = 4
+        else:
+            ref = -run_cma(gen(), neg, x0, zeros, zeros + 1.0, 30)[1]
+            got = -run_cma(gen(), [neg] * 2, pop, zeros, zeros + 1.0, 30)[1]
+            want_gathers = 1
+    assert mesh.gathers == want_gathers and matern_fused.launches > 0
+    assert abs(float(got - ref)) <= 1e-4 * abs(float(ref)), (float(got), float(ref))
