@@ -37,21 +37,42 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # theta, X, Y, K, B, N, M, D, nu_code, sym, stream
     "botorch_matern": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
-    # B, N, M, D -> floats of scratch
-    "botorch_matern_bwd_scratch": ((_I, _I, _I, _I), ctypes.c_longlong),
-    # theta, X, Y, G, scratch, dtheta, dX, dY, B, N, M, D, nu_code, sym, same,
-    # need_t, need_x, need_y, stream
-    "botorch_matern_bwd": ((_P,) * 8 + (_I,) * 10 + (_P,), _I),
-    # theta, X, Y, G, V, gG, gX, B, N, M, D, nu_code, sym, stream
-    "botorch_matern_bwd2": ((_P,) * 7 + (_I,) * 6 + (_P,), _I),
+    # B, N, M, D, same, need_x, need_y, sms -> floats of scratch
+    "botorch_matern_bwd_scratch": ((_I,) * 8, ctypes.c_longlong),
+    # B, N, M, D, same, need_x, need_y, sms -> row-tile counters
+    "botorch_matern_bwd_row_tiles": ((_I,) * 8, _I),
+    # theta, X, Y, G, scratch, counter, tile_counter, dtheta, dX, dY, B, N, M,
+    # D, nu_code, sym, same, need_t, need_x, need_y, sms, stream
+    "botorch_matern_bwd": ((_P,) * 10 + (_I,) * 11 + (_P,), _I),
+    # B, N, M, D, sms -> floats of scratch
+    "botorch_matern_bwd2_scratch": ((_I,) * 5, ctypes.c_longlong),
+    # theta, X, Y, G, V, gG, gX, scratch, counter, B, N, M, D, nu_code, sym,
+    # sms, stream
+    "botorch_matern_bwd2": ((_P,) * 9 + (_I,) * 7 + (_P,), _I),
     # ws, dinv, piv, Bt, rows, n, T, stream
     "botorch_whiten": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
     "botorch_error_string": ((_I,), ctypes.c_char_p),
 }
 
 
+# matern.cu is compiled once per feature chunk (its 20 kernels each) and once
+# for its entry points, so that its 160 kernels build in parallel
+_DEFINES = {"matern.cu": [(f"-DMATERN_DC={k}",) for k in range(9)]}
+
+
 def _sources():
-    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+    """The CUDA sources."""
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def _units():
+    """(source, nvcc defines) of each translation unit, each compiled on its own."""
+    return [(src, d) for src in _sources() for d in _DEFINES.get(src.name, [()])]
+
+
+def _hashed():
+    """What the library's name hashes: the sources and the headers they include."""
+    return _sources() + sorted(SRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -62,8 +83,8 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(_DEFINES).encode())
+    for src in _hashed():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libbotorch_kernels_{h.hexdigest()[:16]}.so"
@@ -93,11 +114,12 @@ def load_library() -> ctypes.CDLL:
 def _build(so: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}.{threading.get_ident()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    units = _units()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.{i}.o" for i, (src, _) in enumerate(units)]
     procs = [
-        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, *defines, "-c", "-o", str(obj), str(src)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src, obj in zip(_sources(), objs)
+        for (src, defines), obj in zip(units, objs)
     ]
     outs = [p.communicate()[0] for p in procs]
     tmp = BUILD_DIR / f"{tag}.tmp"

@@ -19,15 +19,23 @@ has three parts here:
 - a launch counter, an int attribute on the wrapper (`matern_fused.launches`,
   `whiten_fused.launches`), raised by one where the kernel is launched and
   nowhere else; `matern_fused.bwd_launches` counts the backward kernel's
-  calls (two launches each), `matern_fused.bwd2_launches` the second
-  derivative's.
+  calls (one launch each), `matern_fused.bwd2_launches` the second
+  derivative's (one launch each).
+
+The backward and the second derivative sum their blocks' partials in the
+same launch: the last block to arrive adds them up, found through an
+arrival counter in device memory that the kernel leaves at 0. Each (device,
+stream) has its own counters (`_launch_context`), so calls in flight on two
+streams never share one.
 
 The kernels are built at first use (ops/_build.py); nothing is compiled or
 loaded when this module is imported.
 """
 from __future__ import annotations
 
+import functools
 import math
+import threading
 
 import torch
 
@@ -57,6 +65,38 @@ def _require_cuda_f32(name: str, **tensors) -> None:
 
 def _stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (device index, stream) -> int32 arrival counters: the backward's grid, the
+# second derivative's grid, then the backward's row tiles
+_COUNTERS: dict = {}
+_COUNTERS_LOCK = threading.Lock()
+
+
+def _launch_context(t: torch.Tensor, row_tiles: int = 0):
+    """(stream pointer, counters, SM count) for a launch on t's device and
+    current stream. The counters are zeroed int32s in device memory kept for
+    that stream: the backward's, the second derivative's, then `row_tiles`
+    more, one per row tile of the backward (as many as
+    botorch_matern_bwd_row_tiles reports); each kernel's last blocks leave
+    theirs at 0 for the next call, and a call on another stream has other
+    counters."""
+    stream = torch.cuda.current_stream(t.device)
+    index = stream.device.index
+    key = (index, stream.cuda_stream)
+    size = 2 + row_tiles
+    with _COUNTERS_LOCK:
+        counters = _COUNTERS.get(key)
+        if counters is None or counters.numel() < size:
+            # zeroed on this stream, before any launch that uses them
+            grown = size if counters is None else max(size, 2 * counters.numel())
+            counters = _COUNTERS[key] = torch.zeros(grown, dtype=torch.int32, device=t.device)
+    return stream.cuda_stream, counters, _sm_count(index)
 
 
 # ---------------------------------------------------------------------------
@@ -199,9 +239,9 @@ def matern_bwd_plain(theta2, X, Y, K, G, code: int, sym: bool, same: bool, needs
 
 def matern_bwd_fused(theta2, X, Y, G, code: int, sym: bool, same: bool, needs):
     """The backward kernel on CUDA tensors: (g_theta, g_x, g_y) as
-    `matern_bwd_plain` defines them (without K), in two launches: per-tile
-    partial sums, then their sum in a fixed order, so repeated calls are
-    bit-identical. Raises on a CPU or non-float32 tensor."""
+    `matern_bwd_plain` defines them (without K), in one launch: the blocks'
+    partial sums, then their sum in a fixed order by the last block, so
+    repeated calls are bit-identical. Raises on a CPU or non-float32 tensor."""
     G = G.contiguous()
     _require_cuda_f32("matern_fused backward", theta=theta2, X=X, Y=Y, G=G)
     B, D = theta2.shape
@@ -210,10 +250,15 @@ def matern_bwd_fused(theta2, X, Y, G, code: int, sym: bool, same: bool, needs):
         raise ValueError("matern_fused backward: theta, X and Y must be contiguous")
     if G.shape != (B, N, M):
         raise ValueError(f"matern_fused backward: G is {tuple(G.shape)}, expected {(B, N, M)}")
+    if B > 65535:
+        raise ValueError(f"matern_fused backward: batch {B} exceeds the grid limit 65535")
     need_t, need_x = bool(needs[0]), bool(needs[1])
     need_y = bool(needs[2]) or (same and need_x)
     lib = _build.load_library()
-    scratch = torch.empty(lib.botorch_matern_bwd_scratch(B, N, M, D), dtype=torch.float32,
+    sms = _sm_count(X.device.index)
+    plan = (B, N, M, D, int(same), int(need_x), int(need_y), sms)
+    stream, counters, _ = _launch_context(X, lib.botorch_matern_bwd_row_tiles(*plan))
+    scratch = torch.empty(lib.botorch_matern_bwd_scratch(*plan), dtype=torch.float32,
                           device=X.device)
 
     def out(flag, *shape):
@@ -222,9 +267,9 @@ def matern_bwd_fused(theta2, X, Y, G, code: int, sym: bool, same: bool, needs):
     g_theta, g_x, g_y = out(need_t, B, D), out(need_x, N, D), out(need_y and not same, M, D)
     err = lib.botorch_matern_bwd(
         theta2.data_ptr(), X.data_ptr(), Y.data_ptr(), G.data_ptr(), scratch.data_ptr(),
+        counters.data_ptr(), counters[2:].data_ptr(),
         *(0 if t is None else t.data_ptr() for t in (g_theta, g_x, g_y)),
-        B, N, M, D, code, int(sym), int(same), int(need_t), int(need_x), int(need_y),
-        _stream_ptr(X),
+        B, N, M, D, code, int(sym), int(same), int(need_t), int(need_x), int(need_y), sms, stream,
     )
     _build.check(err, "matern_fused backward")
     matern_fused.bwd_launches += 1
@@ -279,9 +324,14 @@ def matern_bwd2_plain(theta2, X, Y, G, V, code: int, sym: bool, needs):
     return gG, gX
 
 
+BWD2_SMEM_BYTES = 226 * 1024  # the second derivative's shared memory (csrc/matern_bwd2.cu)
+
+
 def matern_bwd2_fused(theta2, X, Y, G, V, code: int, sym: bool, needs):
     """The second-derivative kernel on CUDA tensors: (gG, gX) as
-    `matern_bwd2_plain` defines them, in one launch. Raises on a CPU or
+    `matern_bwd2_plain` defines them, in one launch, each row's pairs spread
+    over several blocks and their partials summed in a fixed order by the
+    last block, so repeated calls are bit-identical. Raises on a CPU or
     non-float32 tensor."""
     G, V = G.contiguous(), V.contiguous()
     _require_cuda_f32("matern_fused second derivative", theta=theta2, X=X, Y=Y, G=G, V=V)
@@ -292,10 +342,13 @@ def matern_bwd2_fused(theta2, X, Y, G, V, code: int, sym: bool, needs):
     if G.shape != (B, N, M) or V.shape != (N, D):
         raise ValueError(f"matern_fused second derivative: G {tuple(G.shape)} and V "
                          f"{tuple(V.shape)}, expected {(B, N, M)} and {(N, D)}")
-    if 4 * (B + 2) * D > 48 * 1024:  # w and the row of X and of V, in shared memory
+    if 4 * (B + 2) * D > BWD2_SMEM_BYTES:  # w and the row of X and of V, in shared memory
         raise ValueError(f"matern_fused second derivative: theta {(B, D)} exceeds the kernel's "
-                         "48 KB of shared memory")
+                         f"{BWD2_SMEM_BYTES} bytes of shared memory")
     lib = _build.load_library()
+    stream, counters, sms = _launch_context(X)
+    scratch = torch.empty(lib.botorch_matern_bwd2_scratch(B, N, M, D, sms), dtype=torch.float32,
+                          device=X.device)
 
     def out(flag, *shape):
         return torch.empty(shape, dtype=torch.float32, device=X.device) if flag else None
@@ -303,8 +356,8 @@ def matern_bwd2_fused(theta2, X, Y, G, V, code: int, sym: bool, needs):
     gG, gX = out(needs[0], B, N, M), out(needs[1], N, D)
     err = lib.botorch_matern_bwd2(
         theta2.data_ptr(), X.data_ptr(), Y.data_ptr(), G.data_ptr(), V.data_ptr(),
-        *(0 if t is None else t.data_ptr() for t in (gG, gX)),
-        B, N, M, D, code, int(sym), _stream_ptr(X),
+        *(0 if t is None else t.data_ptr() for t in (gG, gX)), scratch.data_ptr(),
+        counters.data_ptr() + counters.element_size(), B, N, M, D, code, int(sym), sms, stream,
     )
     _build.check(err, "matern_fused second derivative")
     matern_fused.bwd2_launches += 1

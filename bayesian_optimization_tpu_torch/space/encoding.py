@@ -221,6 +221,15 @@ class SpaceEncoding:
                 X[:, j] = np.array([var.value_of(k) for k in lev], dtype=object)
         return X
 
+    def embed_raw(self, X_raw) -> np.ndarray:
+        """Raw object array -> surrogate features (host-side)."""
+        return self.unit_to_embed_np(self.encode_unit(X_raw))
+
+    @property
+    def n_free_real(self) -> int:
+        """The number of real variables."""
+        return int(np.sum(self.is_real))
+
     def __repr__(self) -> str:
         return (
             f"SpaceEncoding(dim={self.dim}, d_embed={self.d_embed}, "

@@ -19,9 +19,11 @@ non-zero, and no phase's exception is caught:
      forward at every path's shape (the parity configs' small buckets and
      the mixed space's D = 6 training matrices among them) with its share
      of the bound, and its backward kernel against the torch backward it
-     replaces (error against the twin in float64, bit-identical repeats,
-     device ms of both), and its second-derivative kernel against its twin
-     in float64 at a Hessian's shapes;
+     replaces (error against the twin in float64, bit-identical over 100
+     calls in a row and over calls in flight on two streams, the kernel's
+     launches a call from the profiler, device ms of both beside the
+     kernel's pre-PR-10 figure), and its second-derivative kernel against
+     its twin in float64 at a Hessian's shapes (the same checks);
      whiten_fused's device time split by kernel name into its diagonal,
      panel and trailing kernels at (2, 1024), (10, 1024) and the hybrid
      panel; a failed lane (indefinite, NaN) flagged by its pivot; then the
@@ -358,6 +360,12 @@ def kernel_profile(fn, calls: int = 10):
     return None
 
 
+def kernel_name(name: str) -> str:
+    """A traced kernel's name without its namespace and parameters."""
+    m = re.search(r"(\w+)(<[^()]*>)?\(", name)
+    return m.group(1) + (m.group(2) or "") if m else name
+
+
 def device_ms_by_kernel(fn, calls: int = 10):
     """Device ms per call of fn(), by kernel name; None if not measured."""
     p = kernel_profile(fn, calls)
@@ -545,15 +553,57 @@ MATERN_BWD_SHAPES = (("warm refit", 2, 1024, None, (True, False, False), DIM),
                      ("config 5 argmax trip, bucket 64", 1, 25, 64, _DX, DIM))
 
 
+# the backward's device ms a call before its one-launch redesign (PERF.md
+# section 6, PR 9's table: two launches, the kernel and its finalize; a
+# range where PERF.md gives one row for several shapes), by path label
+PRE_PR10_BWD_MS = {
+    "warm refit": "0.0083", "cold ladder rung 1": "0.0060-0.0062", "cold ladder rung 2": "0.0074",
+    "argmax trip": "0.0058-0.0064", "batched BFGS trip, q=8 x 25": "0.0058-0.0064",
+    "CMA/SMC generation": "0.0058-0.0064", "MIES generation, 5 restarts": "0.0058-0.0064",
+    "MIES generation, 6 restarts": "0.0058-0.0064", "config 3 fit, bucket 16": "0.0044-0.0109",
+    "config 3 fit, bucket 64": "0.0044-0.0109", "config 4 fit, bucket 16": "0.0044-0.0109",
+    "config 4 fit, bucket 64": "0.0044-0.0109", "mixed fit rung 1": "0.0044-0.0109",
+    "mixed fit rung 2": "0.0044-0.0109", "mixed fit final": "0.0044-0.0109",
+    "CMA fit on the mixed space": "0.0331", "sampler leapfrog, warm-up subset": "0.0055-0.0056",
+    "sampler leapfrog, ensemble state": "0.0219-0.0241", "ensemble predict, argmax trip": "0.0089-0.0092",
+    "config 6 fit, bucket 16": "0.0040", "config 6 argmax trip": "0.0044",
+    "config 5 argmax trip, bucket 64": "0.0058"}
+# the second derivative's, one block a row (PERF.md section 6, PR 7-9)
+PRE_PR10_BWD2_MS = {"Hessian, n=1000": "0.0052-0.0056", "Hessian, ensemble of 8": "0.0288-0.0291"}
+REPEATS = 100  # calls in a row that must give the same bits
+
+
+def bit_identical_repeats(fn, label: str) -> None:
+    """REPEATS calls of fn() in a row, then fn() on two side streams in
+    flight at once (each stream with its own arrival counters), all
+    bit-identical to a first call: the last block's fixed-order sum, and the
+    counter left at 0 by every call."""
+    first = fn()
+    outs = [fn() for _ in range(REPEATS)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for _ in range(5):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(fn())
+    torch.cuda.synchronize()
+    for out in outs:
+        for a, b in zip(first, out):
+            assert (a is None and b is None) or torch.equal(a, b), f"not bit-identical ({label})"
+
+
 def check_matern_bwd():
     """The backward kernel against matern_bwd_plain: the twin in float64 is
     the yardstick (the float32 twin's GEMM expansion of r2 cancels, worst
     near r = 0 for nu = 1/2; its error is printed beside);
-    two calls bit-identical; at nu = 3/2 the device ms of the kernel (both
-    launches) and of the torch backward it replaces. G is masked as
-    _masked_correlation masks it. Returns (worst abs error, per-call ms,
-    twin per-call ms, bound ms, bound_by) at the warm refit's shape, and the
-    rows of the batch and engine paths' shapes."""
+    two calls bit-identical, and at nu = 3/2 REPEATS calls and calls on two
+    streams; at nu = 3/2 the kernel launches a call (the profiler's count,
+    one), the device ms of the kernel beside its pre-PR-10 figure, and of
+    the torch backward it replaces. G is masked as _masked_correlation
+    masks it. Returns (worst abs error, per-call ms, twin per-call ms, bound
+    ms, bound_by) at the warm refit's shape, and the rows of the batch and
+    engine paths' shapes."""
     worst, head, rows = 0.0, None, []
     for label, B, N, M, need, D in MATERN_BWD_SHAPES:
         theta, X, *rest = matern_inputs(B, N, M, seed=1, D=D)
@@ -589,6 +639,7 @@ def check_matern_bwd():
                 errs.append(f"nu={nu} {rel:.2e} (float32 twin {rel32:.2e})")
                 assert rel < MATERN_BWD_TOL, (label, nu, rel)
         code = _nu_code(1.5)
+        bit_identical_repeats(lambda: matern_bwd_fused(theta, X, Y, G, code, same, same, need), label)
         K32 = matern_plain(theta, X, Y, nu=1.5, sym=same)
         t_k = time_ms(lambda: matern_bwd_fused(theta, X, Y, G, code, same, same, need))
         t_p = time_ms(lambda: matern_bwd_plain(theta, X, Y, K32, G, code, same, same, need))
@@ -602,9 +653,10 @@ def check_matern_bwd():
             rows.append(shape_row(label, B, N, M, D, shape_err, t_k, t_p, b_ms, b_by, d_k, d_p))
         asked = "/".join(n for n, f in zip(("theta", "X", "Y"), need) if f)
         log(f"  matern backward {label} ({B}, {N}, {Y.shape[0]}, D={D}), d{asked}: rel err against the "
-            f"float64 twin {'; '.join(errs)} (tol {MATERN_BWD_TOL}); bit-identical repeats; "
-            f"nu=1.5: kernel {t_k:.4f} ms/call ({fmt(d_k)} ms on the device in {fmt(n_k, 'g')} launches: "
-            + ", ".join(f"{name.split('(')[0][-40:]} {v[0]:.4f}" for name, v in (p_k or {}).items())
+            f"float64 twin {'; '.join(errs)} (tol {MATERN_BWD_TOL}); bit-identical repeats "
+            f"({REPEATS} calls, two streams); nu=1.5: kernel {t_k:.4f} ms/call ({fmt(d_k)} ms on the "
+            f"device, pre-PR-10 {PRE_PR10_BWD_MS[label]}; {fmt(n_k, 'g')} launches a call: "
+            + ", ".join(f"{kernel_name(name)} {v[0]:.4f}" for name, v in (p_k or {}).items())
             + f"), bound {b_ms:.3g} ms ({b_by}), share of bound {fmt(ratio(b_ms, d_k), '.3f')}; torch "
             f"backward {t_p:.4f} ms/call ({fmt(d_p)} ms on the device in {fmt(n_p, 'g')} launches)")
         if label == "warm refit":
@@ -627,10 +679,12 @@ def matern_bwd2_bound(B: int, N: int, M: int, D: int = DIM):
 def check_matern_bwd2():
     """The second-derivative kernel against matern_bwd2_plain: the twin in
     float64 is the yardstick (the float32 twin's error printed beside), both
-    outputs (gG, gX), every map; two calls bit-identical; at nu = 3/2 the
-    kernel's and the float32 twin's ms a call and on the device, beside the
-    bound. Returns (worst abs error, ms, twin ms, bound ms, bound_by) at the
-    first shape, and every shape's row."""
+    outputs (gG, gX), every map; two calls bit-identical, and at nu = 3/2
+    REPEATS calls and calls on two streams; at nu = 3/2 the kernel's
+    launches a call (the profiler's count, one), its and the float32 twin's
+    ms a call and on the device, beside the pre-PR-10 figure and the bound.
+    Returns (worst abs error, ms, twin ms, bound ms, bound_by) at the first
+    shape, and every shape's row."""
     worst, head, rows = 0.0, None, []
     for label, B, N, M, D in MATERN_BWD2_SHAPES:
         g = torch.Generator(device="cuda").manual_seed(3)
@@ -663,15 +717,19 @@ def check_matern_bwd2():
         def twin():
             return matern_bwd2_plain(theta, X, Y, G, V, code, False, (True, True))
 
+        bit_identical_repeats(kernel, label)
         t_k, t_p = time_ms(kernel), time_ms(twin)
-        d_k, d_p = device_ms(kernel), device_ms(twin)
+        p_k = kernel_profile(kernel)
+        d_k, n_k = (None, None) if p_k is None else [sum(v[i] for v in p_k.values()) for i in (0, 1)]
+        d_p = device_ms(twin)
         b_ms, b_by = matern_bwd2_bound(B, N, M, D)
         rows.append(shape_row(label, B, N, M, D, shape_err, t_k, t_p, b_ms, b_by, d_k, d_p))
         log(f"  matern second derivative {label} ({B}, {N}, {M}, D={D}): rel err against the float64 "
-            f"twin {'; '.join(errs)} (tol {MATERN_BWD_TOL}); bit-identical repeats; nu=1.5: kernel "
-            f"{t_k:.4f} ms/call ({fmt(d_k)} ms on the device), bound {b_ms:.3g} ms ({b_by}), share of "
-            f"bound {fmt(ratio(b_ms, d_k), '.3f')}; float32 twin {t_p:.4f} ms/call ({fmt(d_p)} ms on "
-            f"the device)")
+            f"twin {'; '.join(errs)} (tol {MATERN_BWD_TOL}); bit-identical repeats ({REPEATS} calls, "
+            f"two streams); nu=1.5: kernel {t_k:.4f} ms/call ({fmt(d_k)} ms on the device, pre-PR-10 "
+            f"{PRE_PR10_BWD2_MS[label]}; {fmt(n_k, 'g')} launches a call), bound {b_ms:.3g} ms "
+            f"({b_by}), share of bound {fmt(ratio(b_ms, d_k), '.3f')}; float32 twin {t_p:.4f} ms/call "
+            f"({fmt(d_p)} ms on the device)")
         if head is None:
             head = (worst, t_k, t_p, b_ms, b_by)
     return head, rows

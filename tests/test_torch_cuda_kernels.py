@@ -96,42 +96,71 @@ def test_matern_kernel_gradients_match_twin(dev, nu):
         assert float((a - b).abs().max() / b.abs().max()) < 1e-4
 
 
+# every combination of (theta, X, Y) gradients asked
+ALL_NEEDS = [(True, False, False), (False, True, False), (False, False, True), (True, True, False),
+             (True, False, True), (False, True, True), (True, True, True)]
+# case -> (B, N, M or None for the training matrix, D): the fit's and the
+# argmax's calls, the ensemble's 8 lanes and the ladder's 10, ragged N and M
+# (M % 4 != 0, and M % 4 == 0 with ragged N), D from 1 to past two 8-feature
+# chunks, G as an unaligned view, and the training matrix (the fit's dtheta
+# kernel of K(X, X)) at D = 1, 3, 5, 8 and ragged blocks of 64, with a full G
+# (nonzero in its last rows and columns) but in "masked", "fit" and "ladder"
+BWD_CASES = {"lanes3": (3, 40, 60, 5), "masked": (2, 48, None, 5), "gated": (2, 30, 45, 5),
+             "duplicates": (1, 40, None, 5), "ragged": (2, 37, 53, 5), "same": (2, 50, None, 5),
+             "fit": (2, 1024, None, 5), "argmax": (1, 25, 1024, 5),
+             "ensemble": (8, 25, 1024, 5), "ladder": (10, 256, None, 5),
+             "d1": (2, 37, 53, 1), "d6": (1, 37, 53, 6), "d8": (2, 37, 53, 8),
+             "d9": (2, 37, 53, 9), "d17": (1, 37, 53, 17), "m4": (8, 37, 52, 5),
+             "same_d9": (2, 45, None, 9), "same_d17": (1, 30, None, 17),
+             "unaligned": (2, 37, 52, 5), "unaligned_m53": (1, 29, 53, 6),
+             "b10_ragged": (10, 19, 133, 5), "same_d1": (2, 70, None, 1),
+             "same_d3": (4, 80, None, 3), "same_d8": (2, 130, None, 8),
+             "same_ragged": (2, 70, None, 5), "same_130": (1, 130, None, 5)}
+
+
 def _bwd_case(case, dev):
     """(theta (B, D), X, Y or None for the training matrix, G (B, N, M),
     the gradients asked for) for one case the backward kernel must handle."""
     r = np.random.default_rng(7)
-    B, N, M = {"lanes3": (3, 40, 60), "masked": (2, 48, None), "gated": (2, 30, 45),
-               "duplicates": (1, 40, None), "ragged": (2, 37, 53), "same": (2, 50, None),
-               "fit": (2, 1024, None), "argmax": (1, 25, 1024)}[case]
-    theta = 10 ** r.uniform(-1, 2, (B, 5))
-    X = r.uniform(0, 1, (N, 5))
-    Y = None if M is None else r.uniform(0, 1, (M, 5))
+    B, N, M, D = BWD_CASES[case]
+    theta = 10 ** r.uniform(-1, 2, (B, D))
+    X = r.uniform(0, 1, (N, D))
+    Y = None if M is None else r.uniform(0, 1, (M, D))
     G = r.standard_normal((B, N, N if M is None else M))
-    if case in ("masked", "fit"):  # as _masked_correlation: padded rows/cols and the diagonal
+    if case in ("masked", "fit", "ladder"):  # as _masked_correlation: padding and diagonal
         mask = (np.arange(N) < N - 9).astype(float)
         G = G * (np.outer(mask, mask) * (1.0 - np.eye(N)))
     if case == "gated":
         theta[0, 1], theta[1, 3] = 0.0, -0.5
+    if case in ("d9", "b10_ragged"):
+        theta[0, 0], theta[-1, -1] = 0.0, -0.5
     if case == "duplicates":
         X[5] = X[3]
         X[11] = X[3]
-    needs = {"fit": [(True, False, False)], "argmax": [(False, True, False)]}.get(
-        case, [(True, False, False), (False, True, False), (True, True, True)])
+    needs = {"fit": [(True, False, False)], "ladder": [(True, False, False)],
+             "argmax": [(False, True, False)], "ensemble": [(False, True, False)]}.get(
+        case, ALL_NEEDS)
 
     def t(a):
         return None if a is None else torch.tensor(a, dtype=torch.float32, device=dev)
 
-    return t(theta), t(X), t(Y), t(G), needs
+    G = t(G)
+    if case.startswith("unaligned"):  # a contiguous view one float past a 16-byte boundary
+        flat = torch.empty(G.numel() + 1, dtype=torch.float32, device=dev)
+        flat[1:] = G.flatten()
+        G = flat[1:].view(G.shape)
+        assert G.is_contiguous() and G.data_ptr() % 16 != 0
+    return t(theta), t(X), t(Y), G, needs
 
 
 @pytest.mark.parametrize("nu", NUS)
-@pytest.mark.parametrize("case", ["lanes3", "masked", "gated", "duplicates", "ragged", "same",
-                                  "fit", "argmax"])
+@pytest.mark.parametrize("case", list(BWD_CASES))
 def test_matern_bwd_kernel_matches_twin(dev, case, nu):
     """The backward kernel against matern_bwd_plain run in float64 on the same
     inputs (the float32 twin's GEMM expansion of r2 cancels, worst near
-    r = 0 for nu = 1/2), within 1e-4 relative to the largest magnitude;
-    bit-identical from call to call; one count per call."""
+    r = 0 for nu = 1/2), within 1e-4 relative to the largest magnitude, for
+    every combination of gradients asked; bit-identical from call to call;
+    one count per call; exact zeros where theta <= 0."""
     theta, X, Y, G, needs = _bwd_case(case, dev)
     same = Y is None
     Yv = X if same else Y
@@ -154,6 +183,81 @@ def test_matern_bwd_kernel_matches_twin(dev, case, nu):
             assert float((a.double() - w).abs().max() / w.abs().max()) < 1e-4
         if need[0]:
             assert bool((got[0][theta <= 0] == 0).all())
+
+
+def _launches_a_call(fn, calls=10, sessions=5):
+    """(kernel launches a call of fn(), what each profiler session saw): the
+    most over `sessions` sessions, since the profiler now and then drops a
+    session's kernel records, some or all (it never adds one)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        seen.append((len(names), sorted(set(n.split("(")[0][-40:] for n in names))))
+    if not max(n for n, _ in seen):
+        pytest.fail(f"the profiler traced no kernel in {sessions} sessions")
+    return max(n for n, _ in seen) / calls, seen
+
+
+@pytest.mark.parametrize("case", ["fit", "ladder", "argmax", "ensemble", "d9", "same_d9",
+                                  "unaligned"])
+def test_matern_bwd_is_one_launch_a_call(dev, case):
+    """Every backward call is one kernel launch, as the profiler counts it,
+    whatever the shapes and the gradients asked."""
+    theta, X, Y, G, needs = _bwd_case(case, dev)
+    same = Y is None
+    for need in needs:
+        n, seen = _launches_a_call(lambda: matern_bwd_fused(theta, X, X if same else Y, G, 3, same,
+                                                            same, need))
+        assert n == 1.0, seen
+
+
+@pytest.mark.parametrize("case", ["fit", "ensemble", "d17", "same"])
+def test_matern_bwd_bit_identical_over_100_calls(dev, case):
+    """100 calls in a row give the same bits: the arrival counter is back to
+    0 after every call, and the partials are summed in a fixed order."""
+    from bayesian_optimization_tpu_torch.ops.hopper_kernels import _launch_context
+
+    theta, X, Y, G, needs = _bwd_case(case, dev)
+    same = Y is None
+    need = needs[-1]
+    first = matern_bwd_fused(theta, X, X if same else Y, G, 5, same, same, need)
+    for _ in range(100):
+        again = matern_bwd_fused(theta, X, X if same else Y, G, 5, same, same, need)
+        for a, b in zip(first, again):
+            assert (a is None and b is None) or torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert not bool(_launch_context(X)[1].any())
+
+
+@pytest.mark.parametrize("case", ["fit", "ensemble", "d9"])
+def test_matern_bwd_two_streams_in_flight(dev, case):
+    """Calls in flight at once on two streams (each with its own arrival
+    counter) give the bits of the same calls made one after another."""
+    theta, X, Y, G, needs = _bwd_case(case, dev)
+    same = Y is None
+    Yv = X if same else Y
+    need = needs[-1]
+    serial = [matern_bwd_fused(theta, X, Yv, G, c, same, same, need) for c in (3, 5)]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    outs = []
+    for _ in range(20):  # alternate, so that the two streams' launches overlap
+        for s, c in zip(streams, (3, 5)):
+            with torch.cuda.stream(s):
+                outs.append((c, matern_bwd_fused(theta, X, Yv, G, c, same, same, need)))
+    torch.cuda.synchronize()
+    for c, got in outs:
+        for a, b in zip(got, serial[c == 5]):
+            assert (a is None and b is None) or torch.equal(a, b)
 
 
 def _check_whiten(R, B):
@@ -648,9 +752,11 @@ def test_forest_grown_on_the_card(dev):
 
 # (B, N, M, D, sym): a Hessian's cross matrix (one query, the padded
 # training rows), an ensemble's 8 members, D past one 8-feature chunk, a
-# ragged batch of rows, and a unit diagonal
+# ragged batch of rows, a unit diagonal, and 8 members at ragged M (each
+# row's pairs split over many blocks)
 BWD2_SHAPES = [(1, 1, 1024, 5, False), (8, 1, 1024, 5, False), (1, 1, 300, 11, False),
-               (2, 37, 53, 5, False), (2, 40, 40, 3, True)]
+               (2, 37, 53, 5, False), (2, 40, 40, 3, True), (8, 1, 1021, 5, False),
+               (8, 3, 517, 6, False), (8, 2, 1000, 11, False)]
 
 
 @pytest.mark.parametrize("nu", NUS)
@@ -676,6 +782,27 @@ def test_matern_bwd2_kernel_matches_twin(dev, nu, shape):
     for a, a2, w in zip(got, again, want):
         assert torch.equal(a, a2)
         assert float((a.double() - w).abs().max() / w.abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1024, 5), (8, 1, 1024, 5)], ids=str)
+def test_matern_bwd2_one_launch_bit_identical(dev, shape):
+    """A Hessian row is one launch, as the profiler counts it, and 100 calls
+    give the same bits (the row's blocks' partials summed in a fixed order)."""
+    B, N, M, D = shape
+    g = torch.Generator(device=dev).manual_seed(0)
+    theta = 10 ** (torch.rand((B, D), generator=g, device=dev) * 2 - 1)
+    X, Y = (torch.rand((k, D), generator=g, device=dev) for k in (N, M))
+    G = torch.randn((B, N, M), generator=g, device=dev)
+    V = torch.randn((N, D), generator=g, device=dev)
+
+    def call():
+        return matern_bwd2_fused(theta, X, Y, G, V, 3, False, (True, True))
+
+    n, seen = _launches_a_call(call)
+    assert n == 1.0, seen
+    first = call()
+    for _ in range(100):
+        assert all(torch.equal(a, b) for a, b in zip(first, call()))
 
 
 def test_matern_second_derivative_on_the_card_refuses(dev):

@@ -17,8 +17,8 @@ import torch
 from bayesian_optimization_tpu.models.kernels import matern, squared_exponential
 from bayesian_optimization_tpu.ops.pallas_kernels import matern_pallas, whiten_fused as whiten_pallas
 from bayesian_optimization_tpu_torch.ops.hopper_kernels import (
-    _dk_dr2, _nu_code, matern_bwd_plain, matern_fused, matern_plain, reset_launch_counts,
-    whiten_fused, whiten_plain,
+    _d2k_dr2, _dk_dr2, _nu_code, matern_bwd2_plain, matern_bwd_plain, matern_fused, matern_plain,
+    reset_launch_counts, whiten_fused, whiten_plain,
 )
 
 torch.set_num_threads(1)  # one thread per pytest worker: more oversubscribe the cores
@@ -134,49 +134,120 @@ def test_matern_bwd_plain_matches_jax(case, nu):
         assert np.abs(g - w).max() / np.abs(w).max() < 1e-4
 
 
-def _emulate_matern_bwd(theta, X, Y, G, code, sym, tile_m=32, tile_n=128):
-    """The backward kernel's schedule (csrc/matern.cu) in torch: per (lane,
-    row tile, column tile) block, A from the direct-form r2 and the tile's
-    partial sums (dtheta per feature, dX per row, dY per column), then
-    matern_bwd_finalize's sums over blocks, weights and gate."""
+def _bwd_plan(B, N, M, D, sms, mode, max_rows=4, warps=8, tile_n=128):
+    """A copy of csrc/matern.cu's bwd_plan for matern_bwd_kernel (change
+    both together): (rows a tile, row tiles, column tiles, blocks a row
+    tile) on a card of `sms` SMs, two blocks an SM in modes 0 (dtheta alone)
+    and 1 (with dX), one in mode 2 (with dY) and in mode 1 at 8 features or
+    more. The wrapper sizes its buffers from the C plan itself
+    (botorch_matern_bwd_scratch, botorch_matern_bwd_row_tiles), not from
+    this copy."""
+    blocks = (1 if mode == 2 or (mode == 1 and D >= 8) else 2) * max(sms, 1)
+    n_jt = -(-M // tile_n)
+    E = B * n_jt
+    rows = max_rows
+    while rows > 1 and -(-N // (warps * rows)) * E < blocks:
+        rows //= 2
+    n_it = -(-N // (warps * rows))
+    return warps * rows, n_it, n_jt, max(1, min(E, -(-blocks // n_it)))
+
+
+def _emulate_matern_bwd(theta, X, Y, G, code, sym, sms, mode, tile_n=128):
+    """The backward kernel's schedule (csrc/matern.cu, matern_bwd_kernel) in
+    torch: block (s, it) takes row tile it's tiles [s E / S, (s + 1) E / S)
+    of its E = B nJt (lane by lane), keeping its dtheta sums per lane
+    (Pt[blk][b]) and its rows' dX sums weighted by w_bk across them (Px[s]),
+    and writing each tile's column sums (dY) weighted by w_bk; then the last
+    block's sums over the blocks and tiles, and the gate."""
     B, D = theta.shape
     N, M = X.shape[0], Y.shape[0]
     w = theta.clamp_min(0.0)
-    n_it, n_jt = -(-N // tile_m), -(-M // tile_n)
-    Pt = torch.zeros(B, n_it, n_jt, D, dtype=X.dtype)
-    Px = torch.zeros(B, n_jt, N, D, dtype=X.dtype)
+    tile_m, n_it, n_jt, S = _bwd_plan(B, N, M, D, sms, mode)
+    E = B * n_jt
+    Pt = torch.zeros(n_it, S, B, D, dtype=X.dtype)
+    Px = torch.zeros(S, N, D, dtype=X.dtype)
     Py = torch.zeros(B, n_it, M, D, dtype=X.dtype)
-    for b in range(B):
-        for it in range(n_it):
-            for jt in range(n_jt):
-                i = torch.arange(it * tile_m, min(N, (it + 1) * tile_m))
+    seen = torch.zeros(n_it, E, dtype=torch.int64)
+    for it in range(n_it):
+        i = torch.arange(it * tile_m, min(N, (it + 1) * tile_m))
+        for s in range(S):
+            for e in range(E * s // S, E * (s + 1) // S):
+                seen[it, e] += 1
+                b, jt = divmod(e, n_jt)
                 j = torch.arange(jt * tile_n, min(M, (jt + 1) * tile_n))
                 d = X[i, None, :] - Y[None, j, :]
                 r2 = (w[b] * d * d).sum(-1)
                 A = G[b][i[:, None], j[None, :]] * _dk_dr2(r2, torch.exp(-r2), code)
                 if sym:
                     A = torch.where(i[:, None] == j[None, :], torch.zeros_like(A), A)
-                Pt[b, it, jt] = (A[..., None] * d * d).sum((0, 1))
-                Px[b, jt, i] = (A[..., None] * d).sum(1)
-                Py[b, it, j] = (A[..., None] * d).sum(0)
-    g_theta = Pt.sum((1, 2)) * (theta > 0)
-    g_x = 2.0 * (w[:, None, :] * Px.sum(1)).sum(0)
-    g_y = -2.0 * (w[:, None, :] * Py.sum(1)).sum(0)
-    return g_theta, g_x, g_y
+                Pt[it, s, b] += (A[..., None] * d * d).sum((0, 1))
+                Px[s, i] += w[b] * (A[..., None] * d).sum(1)
+                Py[b, it, j] = w[b] * (A[..., None] * d).sum(0)
+    assert bool((seen == 1).all())  # every tile of every row tile once
+    return Pt.sum((0, 1)) * (theta > 0), 2.0 * Px.sum(0), -2.0 * Py.sum((0, 1))
 
 
+def _emulate_matern_bwd_square(theta, X, G, code, sym, sms, tile=64):
+    """The dtheta kernel of K(X, X) (csrc/matern.cu, matern_bwd_sym_kernel)
+    in torch: block (p, b) walks the units [p U / P, (p + 1) U / P) of lane
+    b's: the pairs of blocks (I, J), I < J, then the diagonal blocks two at a
+    time, adding (G_ij + G_ji) h d^2 over each pair's block (I, J) and over
+    each diagonal block's strict upper triangle, folded to the pairs
+    (i, (i + o) mod 64), o in [1, 32]; then the sum over the blocks'
+    partials, and the gate."""
+    B, D = theta.shape
+    N = X.shape[0]
+    w = theta.clamp_min(0.0)
+    nT = -(-N // tile)
+    units = ([[(I, J)] for I in range(nT) for J in range(I + 1, nT)]
+             + [[(I, I), (I + 1, I + 1)][:2 if I + 1 < nT else 1] for I in range(0, nT, 2)])
+    U = len(units)
+    P = max(1, min(U, 2 * max(sms, 1) // B))
+    i_f = torch.arange(tile)[:, None].expand(tile, tile // 2)          # folded rows
+    o_f = torch.arange(1, tile // 2 + 1)[None, :].expand(tile, tile // 2)
+    keep = (o_f < tile // 2) | (i_f < tile // 2)
+    Pt = torch.zeros(P, B, D, dtype=X.dtype)
+    for b in range(B):
+        for p in range(P):
+            for unit in units[U * p // P:U * (p + 1) // P]:
+                for I, J in unit:
+                    if I != J:
+                        i = torch.arange(I * tile, min(N, (I + 1) * tile))[:, None]
+                        j = torch.arange(J * tile, min(N, (J + 1) * tile))[None, :]
+                    else:  # the folded strict upper triangle of block I
+                        i = I * tile + i_f[keep]
+                        j = I * tile + (i_f + o_f)[keep] % tile
+                        inside = (i < N) & (j < N)
+                        i, j = i[inside], j[inside]
+                    d = X[i] - X[j]
+                    r2 = (w[b] * d * d).sum(-1)
+                    A = (G[b][i, j] + G[b][j, i]) * _dk_dr2(r2, torch.exp(-r2), code)
+                    Pt[p, b] += (A[..., None] * d * d).reshape(-1, D).sum(0)
+    return Pt.sum(0) * (theta > 0)
+
+
+@pytest.mark.parametrize("sms", [1, 4, 132])
 @pytest.mark.parametrize("nu", NUS)
 @pytest.mark.parametrize("case", ["lanes3", "masked", "gated", "duplicates", "ragged", "same"])
-def test_matern_bwd_schedule_matches_twin(case, nu):
-    """The backward kernel's decomposition (tile partials, then their sums)
-    against the plain backward, both in float64, on the kernel's cases."""
+def test_matern_bwd_schedule_matches_twin(case, nu, sms):
+    """The backward kernel's decomposition (its work split on a card of
+    `sms` SMs, the blocks' partials, then their sums) against the plain
+    backward, both in float64, on the kernel's cases: the split of dtheta
+    alone (for K(X, X) the pairs of blocks above the diagonal and the
+    diagonal blocks' upper triangles, with G + G^T) for dtheta, of dX alone
+    and of everything for dX and dY."""
     theta, X, Y, G = (None if a is None else torch.tensor(a, dtype=torch.float64)
                       for a in _bwd_case(case))
     same = Y is None
     Yv = X if same else Y
     code = _nu_code(nu)
     K = matern_plain(theta, X, Yv, nu=nu, sym=same)
-    g_t, g_x, g_y = _emulate_matern_bwd(theta, X, Yv, G, code, same)
+    g_t = (_emulate_matern_bwd_square(theta, X, G, code, same, sms) if same else
+           _emulate_matern_bwd(theta, X, Yv, G, code, same, sms, mode=0)[0])
+    _, g_x, g_y = _emulate_matern_bwd(theta, X, Yv, G, code, same, sms, mode=2)
+    if not same:  # the argmax's mode, dX without dY: its own split
+        assert float((_emulate_matern_bwd(theta, X, Yv, G, code, same, sms, mode=1)[1] - g_x)
+                     .abs().max()) <= 1e-12 * float(g_x.abs().max())
     if same:  # Y is X: both sides of the distance move with X
         g_x, g_y = g_x + g_y, None
     want = matern_bwd_plain(theta, X, Yv, K, G, code, same, same, (True, True, not same))
@@ -184,6 +255,61 @@ def test_matern_bwd_schedule_matches_twin(case, nu):
         assert (got is None) == (w is None)
         if w is not None:
             assert float((got - w).abs().max() / w.abs().max()) < 1e-9
+
+
+def _row_splits(B, N, M, sms, blocks_per_sm=2, threads=256):
+    """A copy of csrc/matern_bwd2.cu's row_splits (change both together):
+    blocks per row of X."""
+    return max(1, min(-(-B * M // threads), blocks_per_sm * max(sms, 1) // max(N, 1)))
+
+
+def _emulate_matern_bwd2(theta, X, Y, G, V, code, sym, sms):
+    """The second-derivative kernel's schedule (csrc/matern_bwd2.cu) in
+    torch: block s of row i takes the pairs [s P / S, (s + 1) P / S) of the
+    row's P = B M, writes gG per pair and its gX partial; then the sum of
+    each row's S partials."""
+    B, D = theta.shape
+    N, M = X.shape[0], Y.shape[0]
+    w = theta.clamp_min(0.0)
+    S = _row_splits(B, N, M, sms)
+    gG = torch.full((B, N, M), math.nan, dtype=X.dtype)
+    part = torch.zeros(S, N, D, dtype=X.dtype)
+    for i in range(N):
+        for s in range(S):
+            pairs = torch.arange(B * M * s // S, B * M * (s + 1) // S)
+            b, j = pairs // M, pairs % M
+            d = X[i] - Y[j]                                   # (pairs, D)
+            c = (w[b] * d * V[i]).sum(-1)
+            h, h2 = _d2k_dr2((w[b] * d * d).sum(-1), code)
+            if sym:
+                h, h2 = (torch.where(j == i, torch.zeros_like(t), t) for t in (h, h2))
+            gG[b, i, j] = 2.0 * h * c
+            Gv = G[b, i, j]
+            part[s, i] = (w[b] * (2.0 * (Gv * h)[:, None] * V[i] + 4.0 * (Gv * h2 * c)[:, None] * d)).sum(0)
+    return S, gG, part.sum(0)
+
+
+@pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("shape", [(1, 1, 1024, 5, False, 132), (8, 1, 1021, 5, False, 132),
+                                   (2, 3, 53, 5, False, 132), (8, 3, 517, 6, False, 16),
+                                   (2, 40, 40, 3, True, 132), (1, 2, 300, 11, False, 4)], ids=str)
+def test_matern_bwd2_schedule_matches_twin(shape, nu):
+    """The second-derivative kernel's decomposition (each row's pairs split
+    over S blocks, their partials summed) against matern_bwd2_plain, both in
+    float64; S > 1 at the Hessian's shapes."""
+    B, N, M, D, sym, sms = shape
+    r = np.random.default_rng(N + M + D)
+    t = lambda a: torch.tensor(a, dtype=torch.float64)  # noqa: E731
+    theta = t(10 ** r.uniform(-1, 1.5, (B, D)))
+    X = t(r.uniform(0, 1, (N, D)))
+    Y = X.clone() if sym else t(r.uniform(0, 1, (M, D)))
+    G, V = t(r.standard_normal((B, N, M))), t(r.standard_normal((N, D)))
+    code = _nu_code(nu)
+    S, gG, gX = _emulate_matern_bwd2(theta, X, Y, G, V, code, sym, sms)
+    assert S > 1 or N > 1
+    want_G, want_X = matern_bwd2_plain(theta, X, Y, G, V, code, sym, (True, True))
+    assert float((gG - want_G).abs().max() / want_G.abs().max()) < 1e-9
+    assert float((gX - want_X).abs().max() / want_X.abs().max()) < 1e-9
 
 
 @pytest.mark.parametrize("nu", NUS)
