@@ -646,7 +646,9 @@ class BaseBO(BaseOptimizer):
     # --------------------------------------------------------- persistence
     def save(self, filename: str):
         """Checkpoint via dill (ref parity: base.py:499-540); loggers are
-        name-based so no handler surgery is required."""
+        name-based so no handler surgery is required. The file holds two
+        records: the device the BO runs on, then the BO itself, whose
+        tensors stay on that device."""
         import dill
 
         os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
@@ -658,6 +660,7 @@ class BaseBO(BaseOptimizer):
             self._mesh = None  # devices are not pickled; a loaded BO runs unsharded
             self._constraints = None  # rebuilt from h/g on load
             with open(filename, "wb") as f:
+                dill.dump({"device": str(self.device)}, f)
                 dill.dump(self, f)
         finally:
             self.logger = logger
@@ -667,9 +670,14 @@ class BaseBO(BaseOptimizer):
 
     @classmethod
     def load(cls, filename: str):
+        """A checkpoint written by `save`, on the device it was saved from:
+        a card's checkpoint where no usable card exists raises the device
+        gate's error before any tensor is read (the JAX package's loads on
+        any backend)."""
         import dill
 
         with open(filename, "rb") as f:
+            resolve_device(dill.load(f)["device"])
             obj = dill.load(f)
         obj.logger = get_logger(f"{type(obj).__name__}({obj.instance_id})", console=obj.verbose)
         obj._constraints = obj._build_constraints()

@@ -67,3 +67,14 @@ def wfg_hypervolume(Y, ref) -> float:
     n, m = Y.shape
     return float(load_library().wfg_hypervolume(Y.ctypes.data_as(_DOUBLE_P), n, m,
                                                  ref.ctypes.data_as(_DOUBLE_P)))
+
+
+def available() -> bool:
+    """Whether the WFG library builds and loads here. A query only: the
+    hypervolume path calls `load_library` itself and raises on a failed
+    build, whatever this returns."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True

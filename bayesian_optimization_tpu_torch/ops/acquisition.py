@@ -196,3 +196,11 @@ class MGFI(AcquisitionFunction):
 
     def __init__(self, t: float = 1.0, **kwargs):
         super().__init__(t=min(t, MGFI_T_MAX), **kwargs)
+
+    @property
+    def t(self):
+        return self.params["t"]
+
+    @t.setter
+    def t(self, t):
+        self.params["t"] = min(float(t), MGFI_T_MAX)

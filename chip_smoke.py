@@ -23,7 +23,8 @@ non-zero, and no phase's exception is caught:
      calls in a row and over calls in flight on two streams, the kernel's
      launches a call from the profiler, device ms of both beside the
      kernel's pre-PR-10 figure), and its second-derivative kernel against
-     its twin in float64 at a Hessian's shapes (the same checks);
+     its twin in float64 at a Hessian's shapes (the same checks); the
+     backward also at 7 and 8 features, where ptxas reports spills;
      whiten_fused's device time split by kernel name into its diagonal,
      panel and trailing kernels at (2, 1024), (10, 1024) and the hybrid
      panel; a failed lane (indefinite, NaN) flagged by its pivot; then the
@@ -80,9 +81,9 @@ non-zero, and no phase's exception is caught:
      the host (BFGS asked, CMA run) and a q=8 MGFI batch under it, every
      winner feasible; (c) parity config 6 (equality, BFGS) end to end:
      |h| <= 0.1 and fopt within the reference's worst seed; (d) parity
-     config 5 (PCABO, 20-D ellipsoid) end to end, inside the box and below
-     its DoE best, and one BO iteration with GEI (g=2), its criterion
-     against the CPU path's;
+     config 5 (PCABO, 20-D ellipsoid) cut to 40 of its 60 evaluations,
+     inside the box and below its DoE best, and one BO iteration with GEI
+     (g=2), its criterion against the CPU path's;
  13. the tree-surrogate and conditional paths and the rest of the GP: (a)
      fits at n=1000, d=5 with the absolute-exponential kernel and Matern
      nu=7/2, each likelihood at 4 lanes against the CPU path (1e-4); (b) the
@@ -134,12 +135,26 @@ non-zero, and no phase's exception is caught:
      padded pool and generator (winner within 1e-4, lanes that part
      printed), with the mesh's gathers; (e) entry() on the card against
      the CPU path and dryrun_multidevice(2) on ["cuda:0"] * 2;
-each of phases 4, 7-15's paths zeroes the launch counters just before it
+ 16. the JAX package's remaining entry points on the card, d = 5 on
+     bench.py's domain [0, 1]^5, a DoE of 10: (a) NoisyBO, AnnealingBO,
+     SelfAdaptiveBO and MultiAcquisitionBO (q = 2, two batches), the
+     criterion at each last winner against the CPU path in float64 at the
+     same posterior (within 1e-4, or 10 times the CPU float32 path's own
+     error near the winner); (b) save -> load in this process (the loaded
+     BO on the card, its next ask against the original's from the same
+     state: bit-equal or the largest difference), save_state -> a fresh
+     BO -> load_state (the same theta within 1e-6 in log10, equal
+     counters), ask(fixed={"x0": 0.5}) through the argmax and the DoE,
+     warm data with eval_type="dict"; (c) a noise_estim fit, a noiseless
+     fit of duplicated, conflicting rows, and a noiseless fit float32
+     cannot factor, which must escalate to the noisy mode; walls and
+     launches by path;
+each of phases 4, 7-16's paths zeroes the launch counters just before it
 and reads them just after, and fails if a kernel of its path did not
 launch (the Matern forward on every GP path, its backward on the batched
 BFGS, the mixed fit, the samplers, every phase-12 path, the derivatives
-and the NonparametricTrend path, the MO asks, its second derivative on
-the Hessians, the factorisation on the fits), or, on
+and the NonparametricTrend path, the MO asks, every phase-16 path, its
+second derivative on the Hessians, the factorisation on the fits), or, on
 the float64 fit, if any kernel launched. The forest's paths run no
 hand-written kernel: their counts are printed. Then the kernels' JSON line
 (with the batch and engine paths' shapes and every path's launches), the
@@ -159,8 +174,10 @@ import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from types import SimpleNamespace
 import urllib.error
 import urllib.request
 
@@ -169,9 +186,9 @@ import torch
 from torch.autograd import DeviceType
 
 from bayesian_optimization_tpu_torch import (
-    BO, MOBO, PCABO, AcquisitionArgmax, ConditionalBO, ConstraintProgram, DiscreteSpace,
-    GaussianProcess, IntegerSpace, MOBO_qEHVI, NonparametricTrend, ParallelBO, RandomForest,
-    RealSpace, SearchSpace, constant_trend, fmin, require_cuda,
+    BO, MOBO, PCABO, AcquisitionArgmax, AnnealingBO, ConditionalBO, ConstraintProgram, DiscreteSpace,
+    GaussianProcess, IntegerSpace, MOBO_qEHVI, MultiAcquisitionBO, NoisyBO, NonparametricTrend,
+    ParallelBO, RandomForest, RealSpace, SearchSpace, SelfAdaptiveBO, constant_trend, fmin, require_cuda,
 )
 from bayesian_optimization_tpu_torch.native import wfg_hypervolume
 from bayesian_optimization_tpu_torch.entry import dryrun_multidevice, entry
@@ -265,7 +282,8 @@ NEW_SHAPES = ("batched BFGS trip, q=8 x 25", "CMA/SMC generation", "MIES generat
               "CMA fit on the mixed space", "sampler leapfrog, warm-up subset",
               "sampler leapfrog, ensemble state", "ensemble predict, argmax trip",
               "config 6 fit, bucket 16", "config 6 argmax trip", "config 5 argmax trip, bucket 64",
-              "qEHVI CMA generation, 80 chains x q=4")
+              "qEHVI CMA generation, 80 chains x q=4", "fit at D = 7, n=1024", "argmax trip at D = 7",
+              "fit at D = 8, n=1024", "argmax trip at D = 8")
 
 
 def log(msg: str) -> None:
@@ -550,7 +568,13 @@ MATERN_BWD_SHAPES = (("warm refit", 2, 1024, None, (True, False, False), DIM),
                      ("ensemble predict, argmax trip", 8, 25, 1024, _DX, DIM),
                      ("config 6 fit, bucket 16", 10, 16, None, _DTHETA, 2),
                      ("config 6 argmax trip", 1, 10, 16, _DX, 2),
-                     ("config 5 argmax trip, bucket 64", 1, 25, 64, _DX, DIM))
+                     ("config 5 argmax trip, bucket 64", 1, 25, 64, _DX, DIM),
+                     # 7 and 8 features, where ptxas reports spills: the fit's
+                     # dtheta at n=1024 and an argmax trip's dX
+                     ("fit at D = 7, n=1024", 2, 1024, None, _DTHETA, 7),
+                     ("argmax trip at D = 7", 1, 25, 1024, _DX, 7),
+                     ("fit at D = 8, n=1024", 2, 1024, None, _DTHETA, 8),
+                     ("argmax trip at D = 8", 1, 25, 1024, _DX, 8))
 
 
 # the backward's device ms a call before its one-launch redesign (PERF.md
@@ -567,7 +591,9 @@ PRE_PR10_BWD_MS = {
     "CMA fit on the mixed space": "0.0331", "sampler leapfrog, warm-up subset": "0.0055-0.0056",
     "sampler leapfrog, ensemble state": "0.0219-0.0241", "ensemble predict, argmax trip": "0.0089-0.0092",
     "config 6 fit, bucket 16": "0.0040", "config 6 argmax trip": "0.0044",
-    "config 5 argmax trip, bucket 64": "0.0058"}
+    "config 5 argmax trip, bucket 64": "0.0058", "fit at D = 7, n=1024": "not measured",
+    "argmax trip at D = 7": "not measured", "fit at D = 8, n=1024": "not measured",
+    "argmax trip at D = 8": "not measured"}
 # the second derivative's, one block a row (PERF.md section 6, PR 7-9)
 PRE_PR10_BWD2_MS = {"Hessian, n=1000": "0.0052-0.0056", "Hessian, ensemble of 8": "0.0288-0.0291"}
 REPEATS = 100  # calls in a row that must give the same bits
@@ -1720,10 +1746,17 @@ def ellipsoid20(x):
     return float(np.sum(10 ** np.linspace(0, 4, len(x)) * x ** 2))
 
 
+# parity config 5 cut in depth: the whole run must stay well inside its
+# 1200 s on a slow host (1065.2 s with all 60 evaluations, 220 s of them
+# here)
+CONFIG5_FES = 40
+
+
 def parity_constrained_pca(X, y, gp, paths: dict):
     """12c: parity config 6 (BO, h = sum x - 1, GPR + MGFI(t=2) + BFGS, DoE
     3, 20 evaluations, seed 0); 12d: parity config 5 (PCABO, 20-D
-    ellipsoid, 5 components, DoE 20, 60 evaluations, seed 0), and one BO
+    ellipsoid, 5 components, DoE 20, seed 0) cut to 40 of its 60
+    evaluations, and one BO
     iteration with GEI (g=2) on phase 4's data: a refit and the argmax, its
     criterion at the winner against the CPU path's."""
     model = GaussianProcess(corr="squared_exponential", thetaL=1e-5 * np.ones(2), thetaU=np.ones(2),
@@ -1744,18 +1777,19 @@ def parity_constrained_pca(X, y, gp, paths: dict):
     assert viol <= 0.1 and float(fopt[0]) <= CONFIG6_WORST_REF and opt.eval_count == 20
 
     pca = PCABO(search_space=RealSpace([[-5.0, 5.0]] * 20, random_seed=0), obj_fun=ellipsoid20,
-                n_components=5, DoE_size=20, max_FEs=60, random_seed=0)
+                n_components=5, DoE_size=20, max_FEs=CONFIG5_FES, random_seed=0)
     reset_launch_counts()
     _, wall = timed(pca.run)
     c = paths["parity_config_5"] = counts()
     V = np.asarray(pca.data.values, dtype=float)
     doe = float(np.min(pca.data.fitness[:20]))
-    log(f"[12] (d) parity config 5 (PCABO, 20-D ellipsoid, 5 components, 60 evaluations, seed 0): fopt "
+    log(f"[12] (d) parity config 5 (PCABO, 20-D ellipsoid, 5 components, {CONFIG5_FES} of its 60 evaluations, "
+        f"seed 0): fopt "
         f"{pca.fopt:.6g} (DoE-only best {doe:.6g}; PARITY.md's medians: JAX package 1.893e4, reference "
         f"1.053e4), points within [{V.min():.4f}, {V.max():.4f}], {pca.eval_count} evaluations in "
         f"{wall:.2f} s; counters {c}")
     assert live(c), c
-    assert V.min() >= -5.0 - 1e-6 and V.max() <= 5.0 + 1e-6 and pca.fopt < doe and pca.eval_count == 60
+    assert V.min() >= -5.0 - 1e-6 and V.max() <= 5.0 + 1e-6 and pca.fopt < doe and pca.eval_count == CONFIG5_FES
 
     enc = RealSpace([[0.0, 1.0]] * DIM).encoding()
     gei = BO(search_space=RealSpace([[0.0, 1.0]] * DIM), obj_fun=sphere, model=gp,
@@ -2553,6 +2587,207 @@ def service_and_mesh(gp, y, cold, parts, paths: dict, grad_abs_tol: float):
     entry_checks(paths, grad_abs_tol)
 
 
+# phase 16: d = 5 on bench.py's domain [0, 1]^5 (on [-5, 5]^5 EI goes flat
+# where every start lands), a DoE of 10
+P16_DOE, P16_Q, P16_BATCHES = 10, 2, 2
+
+
+def p16_f(x):
+    """bench.py's function without its noise."""
+    return float(np.sin(3 * np.asarray(x, dtype=float)).sum())
+
+
+def p16_bo(cls=BO, **kw):
+    """cls on [0, 1]^5 (variables x0..x4) on the card with the default
+    model, seed 0."""
+    return cls(search_space=RealSpace([[0.0, 1.0]] * DIM, var_name="x", random_seed=0),
+               obj_fun=kw.pop("obj_fun", p16_f),
+               DoE_size=P16_DOE, random_seed=0, device=DEV, **kw)
+
+
+def record_batches(opt) -> list:
+    """Wrap opt's batch argmax: each call appends (criterion, its parameters,
+    the winners, their values, the posterior and config it ran on)."""
+    calls, batch = [], opt._argmax.batch
+
+    def recorder(state, config, acq, pars, **kw):
+        us, vals = batch(state, config, acq, pars, **kw)
+        calls.append((acq, pars, us, vals, type(state)(*(t.clone() for t in state)), config))
+        return us, vals
+
+    opt._argmax.batch = recorder
+    return calls
+
+
+def check_against_f64(label, model, enc, acq, pars, us, vals, floor: float = 1e-30) -> None:
+    """The card's criterion values at its winners against the CPU path in
+    float64 at the same posterior, within 1e-4 of |value| (or `floor`, the
+    larger), or within MO_F32_FACTOR times the CPU float32 path's own error
+    where that is larger. On these near-interpolating posteriors of a few
+    points float32's error scatters from point to point, so its scale is the
+    largest over the winner and 32 points within 1e-2 of it."""
+    parts = []
+    for p, u, v in zip(pars, us, vals):
+        U = np.vstack([u, np.clip(u + np.random.default_rng(0).uniform(-1e-2, 1e-2, (32, u.size)), 0.0, 1.0)])
+        c32, c64 = (cpu_values(model, enc, acq, p, U, dt) for dt in (torch.float32, torch.float64))
+        scale = max(abs(c64[0]), floor)
+        tol = max(1e-4, MO_F32_FACTOR * float(np.abs(c32 - c64).max()) / scale)
+        err = abs(v - c64[0]) / scale
+        parts.append(f"{err:.3e} (tol {tol:.3e})")
+        assert np.isfinite(v) and err <= tol, (label, v, c64[0], c32[0], tol)
+    log(f"  {label}: the card's criterion at its winners against the CPU path in float64, rel err "
+        + ", ".join(parts))
+
+
+def flavors(paths: dict) -> dict:
+    """(a) NoisyBO, AnnealingBO, SelfAdaptiveBO and MultiAcquisitionBO on the
+    card, q = 2, the DoE and two batches each; the criterion at each final
+    winner against the CPU path's at the same posterior (check_against_f64;
+    UCB, which crosses 0, relative to max(|value|, 1))."""
+    noise = np.random.default_rng(3)
+    walls = {}
+    for cls, kw in ((NoisyBO, {"obj_fun": lambda x: p16_f(x) + 0.1 * float(noise.standard_normal())}),
+                    (AnnealingBO, {"t0": 2.0, "tf": 0.1}), (SelfAdaptiveBO, {}), (MultiAcquisitionBO, {})):
+        opt = p16_bo(cls, n_point=P16_Q, max_FEs=P16_DOE + P16_Q * P16_BATCHES, **kw)
+        calls = record_batches(opt)
+        reset_launch_counts()
+        _, wall = timed(opt.run)
+        c = paths[f"flavor_{cls.__name__}"] = counts()
+        walls[cls.__name__] = wall
+        assert live(c) and opt.eval_count >= P16_DOE + P16_Q * P16_BATCHES, (cls.__name__, c)
+        last = calls[-2:] if cls is MultiAcquisitionBO else calls[-1:]
+        for acq, pars, us, vals, state, config in last:
+            check_against_f64(f"{cls.__name__} {acq} x {len(pars)}", SimpleNamespace(posterior=state, config=config),
+                              opt.encoding, acq, pars, us, vals, floor=1.0 if acq == "UCB" else 1e-30)
+        extra = (f", t {opt._acquisition_par['t']:.6g}" if "t" in opt._acquisition_par else "")
+        log(f"  (a) {cls.__name__}: {opt.eval_count} evaluations ({P16_DOE} DoE + {len(calls)} batch argmax "
+            f"calls) in {wall:.2f} s, fopt {opt.fopt:.6g}{extra}; criteria of the last ask "
+            f"{[a for a, *_ in last]}; counters {c}")
+    return walls
+
+
+def checkpoint_paths(paths: dict) -> dict:
+    """(b) one BO on the card after its DoE: save -> load in this process
+    (the loaded BO on the card, its next ask against the original's from
+    the same state, its kernels at the ask and the tell), save_state -> a
+    fresh BO -> load_state (the same theta and counters), the fixed-variable
+    ask through the argmax and through the DoE, and warm data with the dict
+    eval type."""
+    walls = {}
+    opt = p16_bo(max_FEs=100)
+    X = opt.ask()
+    (_, walls["doe_tell"]) = timed(lambda: opt.tell(X, [p16_f(x) for x in X]))
+    theta0, counters0 = opt.model.theta_.copy(), (opt.iter_count, opt.eval_count)
+    with tempfile.TemporaryDirectory() as tmp:
+        opt.save(os.path.join(tmp, "bo.pkl"))
+        opt.save_state(os.path.join(tmp, "bo.json"))
+        loaded, walls["load"] = timed(lambda: BO.load(os.path.join(tmp, "bo.pkl")))
+        fresh = p16_bo(max_FEs=100)
+        _, walls["load_state"] = timed(lambda: fresh.load_state(os.path.join(tmp, "bo.json")))
+    on = torch.device(DEV).type
+    assert loaded.device.type == on and loaded.model.device.type == on
+    assert loaded.model.posterior.L.device.type == on, loaded.model.posterior.L.device
+    reset_launch_counts()
+    (x_l,), walls["loaded_ask"] = timed(loaded.ask)
+    loaded.tell([x_l], [p16_f(x_l)])
+    c = paths["loaded_bo"] = counts()
+    assert live(c), c
+    (x_o,) = opt.ask()
+    diff = float(np.abs(np.asarray(x_l) - np.asarray(x_o)).max())
+    log(f"  (b) save -> load on the card: loaded in {walls['load']:.4f} s, its model on "
+        f"{loaded.model.posterior.L.device}; its next ask {'bit-equal to' if diff == 0.0 else 'apart from'} the "
+        f"original's from the same state (largest difference {diff:.3e}) at {np.round(x_l, 6).tolist()}; "
+        f"ask + tell counters {c}")
+    opt.tell([x_o], [p16_f(x_o)])
+    # the JSON state: a cold refit of the same rows from the same generator
+    rel = float(np.abs(np.log10(fresh.model.theta_) - np.log10(theta0)).max())
+    log(f"  save_state -> fresh BO -> load_state: refit in {walls['load_state']:.4f} s, log10 theta "
+        f"{'equal' if rel == 0.0 else f'apart by {rel:.3e}'} (tol 1e-6), counters "
+        f"{(fresh.iter_count, fresh.eval_count)} (saved {counters0})")
+    assert rel <= 1e-6 and (fresh.iter_count, fresh.eval_count) == counters0, (rel, fresh.theta_, theta0)
+    # the fixed-variable ask: the argmax with x0 pinned, then its tell
+    reset_launch_counts()
+    Xf, walls["fixed_ask"] = timed(lambda: opt.ask(fixed={"x0": 0.5}))
+    opt.tell(Xf, [p16_f(x) for x in Xf])
+    c = paths["fixed_ask"] = counts()
+    assert live(c), c
+    doe = p16_bo(max_FEs=100).ask(fixed={"x0": 0.5})
+    for x in Xf + doe:
+        assert abs(float(x[0]) - 0.5) <= 1e-6 and all(0.0 <= float(v) <= 1.0 for v in x), x
+    log(f"  ask(fixed={{'x0': 0.5}}): the argmax's row {np.round(Xf[0], 6).tolist()} in "
+        f"{walls['fixed_ask']:.4f} s, the DoE's {len(doe)} rows all at x0 = 0.5, free coordinates in "
+        f"[0, 1]; ask + tell counters {c}")
+    # warm data, the dict eval type: the warm rows are the data, no evaluation counted
+    X0, _ = bench_raw(20)
+    reset_launch_counts()
+    warm, walls["warm_fit"] = timed(lambda: p16_bo(
+        obj_fun=lambda d: p16_f([d[f"x{i}"] for i in range(DIM)]), eval_type="dict", max_FEs=2,
+        warm_data=(X0.tolist(), [p16_f(x) for x in X0])))
+    c = paths["warm_data"] = counts()
+    assert live(c) and warm.data.N == len(X0) and warm.eval_count == 0 and warm.model.is_fitted, c
+    warm.run()
+    asked = warm.ask()
+    assert isinstance(asked[0], dict) and sorted(asked[0]) == [f"x{i}" for i in range(DIM)], asked
+    assert warm.eval_count == 2 and warm.data.N == len(X0) + 2
+    log(f"  warm_data (20 rows) with eval_type='dict': warm fit {walls['warm_fit']:.4f} s, data {len(X0)} rows, "
+        f"0 evaluations counted, then {warm.eval_count} evaluations (data {warm.data.N}); an ask is "
+        f"{sorted(asked[0])}; warm fit counters {c}")
+    return walls
+
+
+def gp_modes(paths: dict) -> dict:
+    """(c) a noise-estimating fit, a noiseless fit of duplicated, conflicting
+    rows (on the CPU the likelihood's jitter carries it; whether the card's
+    float32 factorisation escalates it is printed), and a noiseless fit
+    whose correlation float32 cannot factor at any theta in its bounds,
+    which must escalate to the noisy mode (_escalate_nugget); all finite."""
+    walls = {}
+    X, y = bench_raw(200)
+    reset_launch_counts()
+    gp = GaussianProcess(thetaL=1e-2 * np.ones(DIM), thetaU=1e2 * np.ones(DIM), noise_estim=True,
+                         nugget=1e-6, random_state=2, device=DEV)
+    _, walls["noise_estim"] = timed(lambda: gp.fit(X, y))
+    mu, mse = gp.predict(X, eval_MSE=True)
+    c = paths["gp_noise_estim"] = counts()
+    assert live(c) and np.isfinite(gp.log_likelihood_) and np.all(np.isfinite(mu)) and float(np.mean(mse)) > 1e-8
+    log(f"  (c) noise_estim fit at n=200: {walls['noise_estim']:.4f} s, log-likelihood {gp.log_likelihood_:.4f}, "
+        f"sigma2 {np.round(np.ravel(gp.sigma2), 6).tolist()}, mean mse "
+        f"{float(np.mean(mse)):.3e}, corr(mu, y) {np.corrcoef(mu, y)[0, 1]:.4f}; counters {c}")
+    for label, Xg, yg, tl, tu in (
+            ("duplicated, conflicting rows", np.vstack([X[:100], X[:100]]),
+             np.concatenate([y[:100], y[:100] + 0.5]), 1e-2, 1e2),
+            ("theta in [1e-4, 1e-3], n=512", *bench_raw(512), 1e-4, 1e-3)):
+        gp = GaussianProcess(mean=constant_trend(DIM), thetaL=tl * np.ones(DIM), thetaU=tu * np.ones(DIM),
+                             nugget=0.0, random_start=4, random_state=0, device=DEV)
+        escalations = []
+        escalate = gp._escalate_nugget
+        gp._escalate_nugget = lambda *a: escalations.append(gp.estimation_mode) or escalate(*a)
+        reset_launch_counts()
+        _, wall = timed(lambda: gp.fit(Xg, yg))
+        mu, mse = gp.predict(Xg[:8], eval_MSE=True)
+        c = paths["gp_noiseless" if label.startswith("dup") else "gp_escalated"] = counts()
+        log(f"  noiseless fit, {label}: {wall:.4f} s, {len(escalations)} escalations, mode "
+            f"{gp.estimation_mode}, noise {gp.noise_var:.1e}, log-likelihood {gp.log_likelihood_:.4f}; counters {c}")
+        assert live(c) and np.isfinite(gp.log_likelihood_) and np.all(np.isfinite(mu)) and np.all(mse >= 0.0)
+        if label.startswith("theta"):
+            assert escalations and gp.estimation_mode == "noisy", escalations
+        walls[label] = wall
+    return walls
+
+
+def reference_entry_points(paths: dict) -> None:
+    """Phase 16: the JAX package's remaining public entry points on the card."""
+    log(f"[16] the reference's entry points on the card, d={DIM} on [0, 1]^5, DoE {P16_DOE}")
+    walls = {"flavors": flavors(paths)}
+    stamp("phase 16b")
+    walls["checkpoints"] = checkpoint_paths(paths)
+    stamp("phase 16c")
+    walls["gp_modes"] = gp_modes(paths)
+    names = [k for k in paths if k.startswith(("flavor_", "loaded_bo", "fixed_ask", "warm_data", "gp_"))]
+    log("  phase 16 walls (s): " + json.dumps({k: {n: round(v, 4) for n, v in w.items()} for k, w in walls.items()}))
+    log("  phase 16 launches by path: " + json.dumps({k: paths[k] for k in names}))
+
+
 def ptxas_summary(log_text: str):
     """One line per kernel of the build's ptxas report: registers and spill
     bytes. Of the Matern kernels' instantiations (per feature chunk DC and
@@ -2727,6 +2962,10 @@ def main() -> None:
     # 15. the service, the daemon, the particle mesh and the entry points
     stamp("phase 15")
     service_and_mesh(gp, y, cold, parts, paths, grad_abs_tol)
+
+    # 16. the flavors, checkpoints, fixed asks, warm data and GP modes
+    stamp("phase 16")
+    reference_entry_points(paths)
     log(f"  profiler sessions: {PROFILER_SESSIONS['run']}, of which {PROFILER_SESSIONS['empty']} traced "
         f"no kernel")
 

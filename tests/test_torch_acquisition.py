@@ -1,11 +1,15 @@
-"""The port's generalized expected improvement (ops/acquisition.py::gei and
-the GEI class) against the JAX package on the CPU, and GEI through BO."""
+"""The port's criteria (ops/acquisition.py) against the JAX package on the
+CPU: the closed-form goldens of tests/test_acquisition.py with its
+tolerances, the generalized expected improvement (`gei` and the GEI class)
+and GEI through BO, and MGFI's `t` property."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from scipy.stats import norm
 
+import bayesian_optimization_tpu as jbo
 import bayesian_optimization_tpu_torch as tbo
 from bayesian_optimization_tpu.ops import acquisition as ja
 from bayesian_optimization_tpu_torch.ops import acquisition as ta
@@ -76,3 +80,73 @@ def test_gei_through_bo(g):
     opt.run()
     assert opt.eval_count == 12 and opt._acquisition_par == {"g": g}
     assert opt.fopt <= float(np.min(opt.data.fitness[:5]))
+
+
+# ------------------------------------- tests/test_acquisition.py's goldens
+def _t(*a):
+    return [torch.tensor(np.asarray(v, np.float32)) for v in a]
+
+
+def test_ei_golden():
+    mu, sd, plugin = np.array([0.0, 1.0, -1.0]), np.array([1.0, 0.5, 2.0]), 0.0
+    got = ta.ei(*_t(mu, sd), plugin).numpy()
+    imp = plugin - mu
+    want = imp * norm.cdf(imp / sd) + sd * norm.pdf(imp / sd)
+    assert np.allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert np.allclose(got, np.asarray(ja.ei(jnp.asarray(mu, jnp.float32), jnp.asarray(sd, jnp.float32),
+                                             plugin)), rtol=1e-5, atol=1e-6)
+
+
+def test_ei_zero_sd_is_zero():
+    assert float(ta.ei(*_t([0.5], [0.0]), 1.0)[0]) == 0.0
+
+
+def test_pi_golden():
+    mu, sd = np.array([0.3, -0.3]), np.array([0.7, 0.9])
+    got = ta.pi(*_t(mu, sd), 0.1).numpy()
+    assert np.allclose(got, norm.cdf((0.1 - mu) / sd), rtol=1e-5)
+
+
+def test_ucb_is_linear():
+    assert np.allclose(ta.ucb(*_t([1.0, 2.0], [0.5, 1.0]), alpha=2.0).numpy(), [0.0, 0.0])
+
+
+def test_mgfi_golden_and_clamp():
+    mu, sd, plugin, t = 0.2, 0.8, 0.0, 1.5
+    got = float(ta.mgfi(*_t([mu], [sd]), plugin, t=t)[0])
+    beta_p = (plugin - (mu - t * sd**2)) / sd
+    want = norm.cdf(beta_p) * np.exp(t * (plugin - mu - 1.0) + t**2 * sd**2 / 2.0)
+    assert np.isclose(got, want, rtol=1e-4)
+    assert np.isfinite(float(ta.mgfi(*_t([mu], [sd]), plugin, t=1e3)[0]))
+
+
+def test_batch_shapes():
+    mu, sd = torch.zeros(128), torch.ones(128)
+    for fn, kw in [(ta.ei, {"plugin": 0.0}), (ta.pi, {"plugin": 0.0}), (ta.ucb, {"alpha": 1.0}),
+                   (ta.mgfi, {"plugin": 0.0, "t": 2.0})]:
+        out = fn(mu, sd, **kw)
+        assert out.shape == (128,) and bool(torch.isfinite(out).all())
+
+
+def test_gei_matches_mc():
+    """tests/test_acquisition.py's Monte Carlo golden for g = 2, 3."""
+    mu, sd, plugin = 0.3, 0.8, 0.1
+    y = mu + sd * np.random.default_rng(0).standard_normal(400000)
+    for g in (2, 3):
+        got = float(ta.gei(*_t([mu], [sd]), plugin, g=g)[0])
+        assert got == pytest.approx(float(np.mean(np.maximum(plugin - y, 0.0) ** g)), rel=0.03)
+
+
+def test_mgfi_t_property_matches_jax():
+    """MGFI.t reads and writes params["t"], clamped at MGFI_T_MAX, as the
+    JAX package's property does: both packages' params and criterion
+    parameters agree after construction and after each assignment."""
+    j, t = jbo.MGFI(t=1.0, plugin=0.5), tbo.MGFI(t=1.0, plugin=0.5)
+    assert t.t == j.t == 1.0
+    for value, want in ((None, 1.0), (5.0, 5.0), (100.0, 22.36)):
+        if value is not None:
+            j.t = value
+            t.t = value
+        assert t.params == j.params == {"t": want}
+        assert t.criterion_params() == j.criterion_params() == {"t": want, "plugin": 0.5}
+    assert tbo.MGFI(t=50.0).t == jbo.MGFI(t=50.0).t == ta.MGFI_T_MAX

@@ -278,3 +278,29 @@ def test_batch_derivative_free_gives_each_criterion_its_own_winner(real_fit, met
     np.testing.assert_allclose(vs, -mu + np.asarray(alphas) * np.sqrt(np.maximum(mse, 0)), rtol=1e-4,
                                atol=1e-5)
     assert vs[0] <= vs[1] <= vs[2]
+
+
+def test_argmax_x0_seed_injection():
+    """tests/test_optim.py's case: x0_seed overwrites the head of a pool
+    (and of each criterion's pool in a batch); a seed at the criterion's
+    optimum is never beaten by the random pool."""
+    from bayesian_optimization_tpu.optim.argmax import _inject_seeds as j_inject
+    from bayesian_optimization_tpu_torch.optim.argmax import _inject_seeds
+
+    for shape, seeds in (((5, 3), np.full((2, 3), 0.5)), ((4, 5, 3), np.full((1, 3), 0.25))):
+        got = _inject_seeds(torch.zeros(shape), seeds).numpy()
+        want = np.asarray(j_inject(jnp.zeros(shape), seeds, jnp.float32))
+        assert np.array_equal(got, want)
+        assert np.all(got[..., :len(seeds), :] == seeds[0, 0]) and np.all(got[..., len(seeds):, :] == 0.0)
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0, 1, (40, 2))
+    y = ((X - 0.7) ** 2).sum(1)
+    gp = TGP(mean=tbo.constant_trend(2), thetaL=1e-2 * np.ones(2), thetaU=1e2 * np.ones(2), nugget=1e-6,
+             random_state=0, device="cpu").fit(X, (y - y.mean()) / y.std())
+    enc = tbo.RealSpace([[0.0, 1.0]] * 2).encoding()
+    pars = {"plugin": float(y.min())}
+    _, v1 = TArgmax(enc, method="BFGS", n_restart=4, seed=0, device="cpu")(gp.posterior, gp.config, "EI", pars)
+    _, v2 = TArgmax(enc, method="BFGS", n_restart=4, seed=0, device="cpu")(
+        gp.posterior, gp.config, "EI", pars, x0_seed=np.asarray([[0.7, 0.7]]))
+    assert v2 >= v1 - 1e-6, (v1, v2)

@@ -892,7 +892,11 @@ def test_mobo_asks_on_the_card(dev):
     CMA) on the card: every kernel of the fit launches, and the card's
     criterion at each winner is the CPU path's in float64 within 1e-4, or
     within 10 times the CPU float32 path's own error where that is larger
-    (this near-interpolating posterior's float32 mean is what limits it)."""
+    (this near-interpolating posterior's float32 mean is what limits it).
+    That error is float32's rounding of a cancelling sum, which scatters
+    from point to point: one point can be a lucky draw of it (6.8e-6 at one
+    EHVI maximum, 2.6e-5 at its mirror), so its scale is the largest over
+    the winner and 32 points within 1e-2 of it."""
     from bayesian_optimization_tpu_torch import MOBO, MOBO_qEHVI, RealSpace
     from bayesian_optimization_tpu_torch.optim.argmax import make_unit_criterion
     from bayesian_optimization_tpu_torch.ops.hopper_kernels import reset_launch_counts
@@ -910,6 +914,8 @@ def test_mobo_asks_on_the_card(dev):
         else:
             par, am, name = opt._qehvi_par(q), opt._q_argmax(q), f"qEHVI{q}"
         u, v = am(opt.model.posterior, opt.model.config, name, par)
+        near = np.clip(u + np.random.default_rng(3).uniform(-1e-2, 1e-2, (32, u.size)), 0.0, 1.0)
+        U = np.vstack([u[None], near])
         cpu = {}
         for dt in (torch.float32, torch.float64):
             post = type(opt.model.posterior)(*(t.cpu().to(dt) for t in opt.model.posterior))
@@ -917,10 +923,11 @@ def test_mobo_asks_on_the_card(dev):
                                        opt.model.config, name,
                                        {k: torch.tensor(np.asarray(x), dtype=dt) for k, x in par.items()})
             with torch.no_grad():
-                cpu[dt] = float(crit(torch.tensor(u[None], dtype=dt))[0])
+                cpu[dt] = crit(torch.tensor(U, dtype=dt)).double().numpy()
         want = cpu[torch.float64]
-        tol = max(1e-4, 10 * abs(cpu[torch.float32] - want) / abs(want))
-        assert v > 0 and abs(v - want) <= tol * abs(want), (name, v, cpu)
+        f32_err = np.abs(cpu[torch.float32] - want) / abs(want[0])
+        tol = max(1e-4, 10 * float(f32_err.max()))
+        assert v > 0 and abs(v - want[0]) <= tol * abs(want[0]), (name, v, want[0], f32_err.max())
         assert len(opt.ask()) == q
 
 

@@ -1,13 +1,14 @@
 """The port's SMC-resampled CMA chains against the JAX package on the CPU:
 systematic resampling and chain resampling given the JAX package's uniform
-offset give identical indices, and the engine finds the optimum of
-tests/test_smc.py's multimodal function."""
+offset give identical indices, the engine finds the optimum of
+tests/test_smc.py's multimodal function, and BO and ParallelBO run on it."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import bayesian_optimization_tpu_torch as tbo
 from bayesian_optimization_tpu.optim import cma as jcma
 from bayesian_optimization_tpu.optim import smc as jsmc
 from bayesian_optimization_tpu_torch.models.convert import cma_state_from_numpy
@@ -88,3 +89,30 @@ def test_run_smc_finds_global_optimum_multimodal(groups):
     assert np.allclose(xb.numpy(), 0.3, atol=0.02)
     assert X.shape == (64 * groups, d) and F.shape == (64 * groups,)
     assert xb.shape == ((d,) if groups == 1 else (groups, d))
+
+
+def _sphere_gp():
+    return tbo.GaussianProcess(mean=tbo.constant_trend(2), corr="matern", thetaL=1e-3 * np.ones(2),
+                               thetaU=1e3 * np.ones(2), nugget=1e-6, random_state=0, device="cpu")
+
+
+def test_bo_with_smc_engine():
+    """tests/test_smc.py's BO on the SMC engine, on the port."""
+    opt = tbo.BO(search_space=tbo.RealSpace([[-5, 5]] * 2, random_seed=0),
+                 obj_fun=lambda x: float(np.sum(np.asarray(x) ** 2)), model=_sphere_gp(), DoE_size=5,
+                 max_FEs=15, random_seed=0, acquisition_optimization={"optimizer": "SMC"}, device="cpu")
+    assert opt._argmax.method == "SMC"
+    xopt, fopt, _ = opt.run()
+    assert opt.eval_count == 15
+    assert fopt[0] < 1.0, fopt
+
+
+def test_parallelbo_q4_with_smc_engine():
+    """4 MGFI criteria maximized as one SMC population; distinct points."""
+    opt = tbo.ParallelBO(search_space=tbo.RealSpace([[-5, 5]] * 2, random_seed=0),
+                         obj_fun=lambda x: float(np.sum(np.asarray(x) ** 2)), model=_sphere_gp(), n_point=4,
+                         acquisition_fun="MGFI", acquisition_par={"t": 2.0}, DoE_size=4, max_FEs=16,
+                         random_seed=0, acquisition_optimization={"optimizer": "SMC"}, device="cpu")
+    opt.run()
+    assert opt.eval_count == 16
+    assert float(opt.xopt.fitness.ravel()[0]) < 5.0

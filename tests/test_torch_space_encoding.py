@@ -1,8 +1,14 @@
-"""The port's SpaceEncoding host helpers (`embed_raw`, `n_free_real`)
-against the JAX package's, on the CPU: the same raw points, drawn with
-numpy, through both packages' encodings of the same space."""
+"""The port's SpaceEncoding (space/encoding.py) against the JAX package's,
+on the CPU: the host helpers (`embed_raw`, `n_free_real`) on the same raw
+points, drawn with numpy, through both packages' encodings of the same
+space, and the cases of tests/test_encoding.py on the port (the layout, the
+round trip through raw values, quantize, the one-hot embedding, the LHS
+sampler, gradients in the real columns, and the numpy path against the
+tensor path, each also against the JAX package's on the same unit points)."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import bayesian_optimization_tpu as bo_jax
 import bayesian_optimization_tpu_torch as bo_torch
@@ -63,3 +69,81 @@ def test_n_free_real_matches_jax(kind, n_real):
     enc_t = _space(bo_torch, kind).encoding()
     assert enc_t.n_free_real == enc_j.n_free_real == n_real
     assert isinstance(enc_t.n_free_real, int)
+
+
+# ------------------------------------------------ tests/test_encoding.py
+def test_embed_layout():
+    enc = _space(bo_torch, "mixed").encoding()
+    # lr(1) + k(1) + cat(one-hot 3) + flag(1) + size(1)
+    assert (enc.d_embed, enc.dim) == (7, 5)
+    enc_j = _space(bo_jax, "mixed").encoding()
+    assert enc.emb_offset.tolist() == np.asarray(enc_j.emb_offset).tolist()
+    assert enc.emb_width.tolist() == np.asarray(enc_j.emb_width).tolist()
+
+
+def test_unit_roundtrip_through_raw():
+    cs = _space(bo_torch, "mixed")
+    cs.random_seed = 0
+    enc = cs.encoding()
+    X = cs.sample(32)
+    U = enc.encode_unit(X)
+    X2 = enc.decode_unit(U)
+    for a, b in zip(X.ravel(), X2.ravel()):
+        if isinstance(a, float):
+            assert np.isclose(a, float(b), rtol=1e-5)
+        else:
+            assert a == b
+    enc_j = _space(bo_jax, "mixed").encoding()
+    assert np.array_equal(U, np.asarray(enc_j.encode_unit(X)))
+    assert X2.tolist() == enc_j.decode_unit(U).tolist()
+
+
+def test_quantize_idempotent():
+    enc = _space(bo_torch, "mixed").encoding()
+    U = enc.sample_unit(torch.Generator().manual_seed(0), 16)
+    Q = enc.quantize_unit(U)
+    assert torch.allclose(Q, enc.quantize_unit(Q), atol=1e-6)
+    a, b = enc.decode_unit(U.numpy()), enc.decode_unit(Q.numpy())
+    for x, y in zip(a.ravel(), b.ravel()):
+        if not isinstance(x, float):
+            assert x == y
+    enc_j = _space(bo_jax, "mixed").encoding()
+    assert np.allclose(Q.numpy(), np.asarray(enc_j.quantize_unit(jnp.asarray(U.numpy()))), atol=1e-7)
+
+
+def test_embed_is_onehot():
+    enc = _space(bo_torch, "mixed").encoding()
+    U = enc.sample_unit(torch.Generator().manual_seed(1), 8)
+    E = enc.unit_to_embed(U)
+    assert E.shape == (8, enc.d_embed)
+    block = E[:, 2:5].numpy()  # the categorical block is exactly one-hot
+    assert np.allclose(block.sum(axis=1), 1.0) and set(np.unique(block)) <= {0.0, 1.0}
+    enc_j = _space(bo_jax, "mixed").encoding()
+    assert np.array_equal(E.numpy(), np.asarray(enc_j.unit_to_embed(jnp.asarray(U.numpy()))))
+
+
+def test_lhs_unit_sampler():
+    enc = bo_torch.RealSpace([[0, 1]] * 3, var_name="x").encoding()
+    U = enc.sample_unit(torch.Generator().manual_seed(2), 10, method="lhs").numpy()
+    for j in range(3):
+        assert sorted(np.floor(U[:, j] * 10).astype(int).tolist()) == list(range(10))
+
+
+def test_real_gradients_flow():
+    cs = bo_torch.RealSpace([[0, 1]] * 2, var_name="x") + bo_torch.IntegerSpace([0, 5], var_name="k")
+    enc = cs.encoding()
+    u = torch.full((1, 3), 0.4, requires_grad=True)
+    (g,) = torch.autograd.grad((enc.unit_to_embed(u) ** 2).sum(), u)
+    assert torch.isfinite(g).all() and abs(float(g[0, 0])) > 0  # real columns carry gradient
+    assert float(g[0, 2]) == 0.0  # the integer's level is piecewise constant
+
+
+def test_unit_to_embed_np_matches_tensor():
+    """The host embedding of ask/tell equals the tensor one of the argmax,
+    and the JAX package's host embedding."""
+    enc = _space(bo_torch, "mixed").encoding()
+    U = np.random.default_rng(7).uniform(0, 1, (37, enc.dim))
+    E_np = enc.unit_to_embed_np(U)
+    E_t = enc.unit_to_embed(torch.tensor(U, dtype=torch.float64)).numpy()
+    assert E_np.shape == E_t.shape and np.allclose(E_np, E_t, atol=1e-6)
+    assert np.array_equal(E_np, np.asarray(_space(bo_jax, "mixed").encoding().unit_to_embed_np(U)))
