@@ -39,6 +39,7 @@ import torch
 from .._device import DEFAULT_DEVICE, resolve_device
 from ..ops.optimize import minimize_restarts
 from ..optim.cma import run_cma
+from ..utils.logging import host_sync
 from .hmc import Draws, _to_box, fit_vi, hmc_sample, nuts_sample
 from .likelihood import (
     PIV_TOL,
@@ -95,7 +96,10 @@ def _fit_summary(par, nll, state: PosteriorState):
     flat = torch.cat([
         ok.to(par.dtype).reshape(1), 10.0 ** par.reshape(-1), nll.reshape(1),
         state.sigma2.reshape(-1), state.beta.reshape(-1),
-    ]).cpu().double().numpy()
+    ])
+    with host_sync():
+        flat = flat.cpu()
+    flat = flat.double().numpy()
     P, m = par.numel(), state.sigma2.numel()
     return (
         bool(flat[0]), flat[1:1 + P], float(flat[1 + P]),
@@ -188,7 +192,8 @@ class GaussianProcess:
 
     # ------------------------------------------------------------------
     def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=self.dtype, device=self.device)
+        with host_sync():  # a blocking copy to the device
+            return torch.as_tensor(np.asarray(a), dtype=self.dtype, device=self.device)
 
     def _config(self, dim: int) -> GPConfig:
         mean = self.mean
@@ -603,11 +608,14 @@ class GaussianProcess:
         if X.ndim == 1:
             X = X.reshape(1, -1)
         mu, mse = self._predict_padded(X, eval_MSE)
-        mu = mu.cpu().double().numpy()
+        with host_sync(1 + eval_MSE):
+            mu = mu.cpu()
+            mse = mse.cpu() if eval_MSE else None
+        mu = mu.double().numpy()
         if self._m == 1:
             mu = mu.ravel()
         if eval_MSE:
-            mse = mse.cpu().double().numpy()
+            mse = mse.double().numpy()
             if self._m == 1:
                 mse = mse.ravel()
             return mu, mse

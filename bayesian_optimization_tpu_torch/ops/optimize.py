@@ -14,12 +14,20 @@ box x = lo + (hi - lo) sigmoid(z), non-finite gradients zeroed, and the
 stall exit `done = not good` kept as it is (it misses an accepted step
 that does not move; see ROADMAP Queue 3), so evaluation counts match the
 reference.
+
+Inside a timed phase (utils/logging.py) each trip is timed by the spans
+"lbfgs.forward", "lbfgs.backward", "lbfgs.update" and "host_sync" (the
+live-lane read) and counted in "lbfgs.trips" and "lbfgs.lane_evals"; a
+run's concluded steps, "lbfgs.steps", are read once at its end. Outside a
+phase none of it costs more than a lookup, and no number changes.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..utils.logging import count, host_sync, in_phase, span
 
 _Z_CLIP = 12.0  # |z| beyond this is numerically saturated in f32
 
@@ -40,12 +48,18 @@ class MinimizeResult(NamedTuple):
     fun_best: torch.Tensor # () best value
 
 
-def _value_and_grad(zfun, z: torch.Tensor, idx: torch.Tensor):
-    with torch.enable_grad():
-        zz = z.detach().requires_grad_(True)
+def _value_and_grad(zfun, z, t, p, idx: torch.Tensor):
+    """One trip's objective: the trial points z + t p of every lane (clipped),
+    the values of the live lanes idx there (the span "lbfgs.forward") and
+    their gradients by autograd ("lbfgs.backward")."""
+    with span("lbfgs.forward"), torch.enable_grad():
+        z_trial = (z + t[:, None] * p).clamp(-_Z_CLIP, _Z_CLIP)
+        zz = z_trial[idx].detach().requires_grad_(True)
         f = zfun(zz, idx)
-        (g,) = torch.autograd.grad(f.sum(), zz)
-    return f.detach(), g
+        total = f.sum()
+    with span("lbfgs.backward"):
+        (g,) = torch.autograd.grad(total, zz)
+    return z_trial, f.detach(), g
 
 
 def _direction(g, S, Y, rho, k, gamma, m: int):
@@ -108,57 +122,64 @@ def _lbfgs_batched(zfun, z0, max_iter: int, memory_size: int, max_linesearch_ste
     done = torch.zeros((R,), dtype=torch.bool, device=dev)
 
     while True:
-        active = ~done & (n_accept < max_iter + 1)
-        idx = active.nonzero()[:, 0]
-        if idx.numel() == 0:
+        with host_sync():
+            active = ~done & (n_accept < max_iter + 1)
+            idx = active.nonzero()[:, 0]
+            n_live = idx.numel()
+        if n_live == 0:
             break
-        z_trial = (z + t[:, None] * p).clamp(-_Z_CLIP, _Z_CLIP)
-        f_t = torch.full((R,), float("inf"), dtype=dt, device=dev)
-        g_t = torch.zeros((R, d), dtype=dt, device=dev)
-        f_a, g_a = _value_and_grad(zfun, z_trial[idx], idx)
-        f_t[idx] = f_a
-        g_t[idx] = torch.where(torch.isfinite(g_a), g_a, torch.zeros_like(g_a))
+        count("lbfgs.trips")
+        count("lbfgs.lane_evals", n_live)
+        z_trial, f_a, g_a = _value_and_grad(zfun, z, t, p, idx)
+        with span("lbfgs.update"):
+            f_t = torch.full((R,), float("inf"), dtype=dt, device=dev)
+            g_t = torch.zeros((R, d), dtype=dt, device=dev)
+            f_t[idx] = f_a
+            g_t[idx] = torch.where(torch.isfinite(g_a), g_a, torch.zeros_like(g_a))
 
-        armijo = f_t <= f + c1 * t * gTp
-        stop = armijo | (n_probe >= max_linesearch_steps)
+            armijo = f_t <= f + c1 * t * gTp
+            stop = armijo | (n_probe >= max_linesearch_steps)
 
-        # step concludes: accept if finite and improving
-        good = torch.isfinite(f_t) & (f_t <= f) & torch.isfinite(z_trial).all(-1)
-        z_new = torch.where(good[:, None], z_trial, z)
-        f_new = torch.where(good, f_t, f)
-        g_new = torch.where(good[:, None], g_t, g)
-        s = z_new - z
-        y = g_new - g
-        sy = (s * y).sum(-1)
-        curv_ok = good & (sy > 1e-10 * s.norm(dim=-1) * y.norm(dim=-1) + 1e-30)
-        slot = torch.remainder(k, m)
-        S_new, Y_new, rho_new = S.clone(), Y.clone(), rho.clone()
-        S_new[lanes, slot] = torch.where(curv_ok[:, None], s, S[lanes, slot])
-        Y_new[lanes, slot] = torch.where(curv_ok[:, None], y, Y[lanes, slot])
-        rho_new[lanes, slot] = torch.where(curv_ok, 1.0 / sy.clamp_min(1e-30), rho[lanes, slot])
-        k_new = k + curv_ok.long()
-        gamma_new = torch.where(curv_ok, sy / (y * y).sum(-1).clamp_min(1e-30), gamma)
-        p_new = _direction(g_new, S_new, Y_new, rho_new, k_new, gamma_new, m)
+            # step concludes: accept if finite and improving
+            good = torch.isfinite(f_t) & (f_t <= f) & torch.isfinite(z_trial).all(-1)
+            z_new = torch.where(good[:, None], z_trial, z)
+            f_new = torch.where(good, f_t, f)
+            g_new = torch.where(good[:, None], g_t, g)
+            s = z_new - z
+            y = g_new - g
+            sy = (s * y).sum(-1)
+            curv_ok = good & (sy > 1e-10 * s.norm(dim=-1) * y.norm(dim=-1) + 1e-30)
+            slot = torch.remainder(k, m)
+            S_new, Y_new, rho_new = S.clone(), Y.clone(), rho.clone()
+            S_new[lanes, slot] = torch.where(curv_ok[:, None], s, S[lanes, slot])
+            Y_new[lanes, slot] = torch.where(curv_ok[:, None], y, Y[lanes, slot])
+            rho_new[lanes, slot] = torch.where(curv_ok, 1.0 / sy.clamp_min(1e-30), rho[lanes, slot])
+            k_new = k + curv_ok.long()
+            gamma_new = torch.where(curv_ok, sy / (y * y).sum(-1).clamp_min(1e-30), gamma)
+            p_new = _direction(g_new, S_new, Y_new, rho_new, k_new, gamma_new, m)
 
-        acc = active & stop      # lanes whose step concluded this trip
-        probe = active & ~stop   # lanes still backtracking: halve t
-        a1, a2 = acc[:, None], acc[:, None, None]
-        z = torch.where(a1, z_new, z)
-        f = torch.where(acc, f_new, f)
-        g = torch.where(a1, g_new, g)
-        S = torch.where(a2, S_new, S)
-        Y = torch.where(a2, Y_new, Y)
-        rho = torch.where(a1, rho_new, rho)
-        k = torch.where(acc, k_new, k)
-        gamma = torch.where(acc, gamma_new, gamma)
-        p = torch.where(a1, p_new, p)
-        gTp = torch.where(acc, (g_new * p_new).sum(-1), gTp)
-        t = torch.where(acc, torch.ones_like(t), torch.where(probe, 0.5 * t, t))
-        n_probe = torch.where(acc, torch.zeros_like(n_probe), n_probe + probe.long())
-        n_accept = n_accept + acc.long()
-        # the stall exit, as the reference has it: a concluded step that did
-        # not improve leaves the lane at a fixed point
-        done = torch.where(acc, ~good, done)
+            acc = active & stop      # lanes whose step concluded this trip
+            probe = active & ~stop   # lanes still backtracking: halve t
+            a1, a2 = acc[:, None], acc[:, None, None]
+            z = torch.where(a1, z_new, z)
+            f = torch.where(acc, f_new, f)
+            g = torch.where(a1, g_new, g)
+            S = torch.where(a2, S_new, S)
+            Y = torch.where(a2, Y_new, Y)
+            rho = torch.where(a1, rho_new, rho)
+            k = torch.where(acc, k_new, k)
+            gamma = torch.where(acc, gamma_new, gamma)
+            p = torch.where(a1, p_new, p)
+            gTp = torch.where(acc, (g_new * p_new).sum(-1), gTp)
+            t = torch.where(acc, torch.ones_like(t), torch.where(probe, 0.5 * t, t))
+            n_probe = torch.where(acc, torch.zeros_like(n_probe), n_probe + probe.long())
+            n_accept = n_accept + acc.long()
+            # the stall exit, as the reference has it: a concluded step that did
+            # not improve leaves the lane at a fixed point
+            done = torch.where(acc, ~good, done)
+    if in_phase():  # the lanes' concluded steps, read once a run
+        with host_sync():
+            count("lbfgs.steps", int(n_accept.sum()))
     return z, f
 
 
@@ -190,7 +211,9 @@ def minimize_restarts(
     xs = to_box(zs, lo, hi)
     vals = torch.where(torch.isfinite(vals), vals, torch.full_like(vals, float("inf")))
     best = torch.argmin(vals)
-    return MinimizeResult(x=xs, fun=vals, x_best=xs[best], fun_best=vals[best])
+    with host_sync(2):  # indexing by a 0-d device tensor reads it, twice
+        x_best, fun_best = xs[best], vals[best]
+    return MinimizeResult(x=xs, fun=vals, x_best=x_best, fun_best=fun_best)
 
 
 def maximize_restarts(fun, x0, lo, hi, **kw) -> MinimizeResult:

@@ -75,6 +75,7 @@ from ..ops.acquisition import acquisition_fn, gei
 from ..ops.ehvi import ehvi, qehvi
 from ..ops.optimize import maximize_restarts
 from ..parallel.mesh import ParticleMesh, as_population, replicated, shard_population
+from ..utils.logging import host_sync
 from .cma import best_per_group, run_cma
 from .mies import MIESSpec, run_mies
 from .smc import run_smc
@@ -358,13 +359,16 @@ class AcquisitionArgmax:
         fm, fv = np.zeros(dim), np.zeros(dim)
         for j, u in fixed.items():
             fm[j], fv[j] = 1.0, u
-        return (torch.as_tensor(fm, dtype=self.encoding.dtype, device=self.device),
-                torch.as_tensor(fv, dtype=self.encoding.dtype, device=self.device))
+        with host_sync(2):
+            return (torch.as_tensor(fm, dtype=self.encoding.dtype, device=self.device),
+                    torch.as_tensor(fv, dtype=self.encoding.dtype, device=self.device))
 
     def _pool(self, q: int, P: int, x0_seed) -> torch.Tensor:
         """(q * P, dim) starts from the CPU generator, seeds at each head."""
         x0 = torch.rand((q, P, self.encoding.dim), generator=self._gen, dtype=self.encoding.dtype)
-        return _inject_seeds(x0, x0_seed).reshape(q * P, -1).to(self.device)
+        x0 = _inject_seeds(x0, x0_seed).reshape(q * P, -1)
+        with host_sync():
+            return x0.to(self.device)
 
     def _chain_gen(self) -> torch.Generator:
         seed = int(torch.randint(0, 2**62, (1,), generator=self._gen))
@@ -405,7 +409,9 @@ class AcquisitionArgmax:
         if fixed_mask is not None:
             us = torch.where(fixed_mask > 0, fixed_vals, us)
         us = self.encoding.quantize_unit(us).clamp(0.0, 1.0)
-        return us.detach().cpu().numpy(), vals.detach().cpu().double().numpy()
+        with host_sync(2):
+            us, vals = us.detach().cpu(), vals.detach().cpu()
+        return us.numpy(), vals.double().numpy()
 
     def _lane_params(self, acq_params: Dict, reps: int = 1) -> Dict:
         """Parameters as tensors on the device; a list of q values becomes a
@@ -416,7 +422,9 @@ class AcquisitionArgmax:
             if k in _PRIOR_KEYS:  # a prior's forest passes unchanged
                 return v
             t = torch.as_tensor(np.asarray(v, dtype=np.float64), dtype=self.encoding.dtype)
-            return (t.repeat_interleave(reps) if t.ndim and not _shared(k) else t).to(self.device)
+            t = t.repeat_interleave(reps) if t.ndim and not _shared(k) else t
+            with host_sync():
+                return t.to(self.device)
 
         return {k: one(k, v) for k, v in acq_params.items()}
 

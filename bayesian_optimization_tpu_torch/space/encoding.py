@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.logging import host_sync
 from .space import SearchSpace
 from .variables import Bool, Integer, Ordinal, Real
 
@@ -79,10 +80,12 @@ class SpaceEncoding:
 
     # --------------------------------------------------------- tensor codecs
     def _levels_t(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.as_tensor(np.maximum(self.n_levels, 1), dtype=like.dtype, device=like.device)
+        with host_sync():  # a blocking copy to the device
+            return torch.as_tensor(np.maximum(self.n_levels, 1), dtype=like.dtype, device=like.device)
 
     def _discrete_t(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.as_tensor(~self.is_real, device=like.device)
+        with host_sync():
+            return torch.as_tensor(~self.is_real, device=like.device)
 
     def quantize_unit(self, U: torch.Tensor) -> torch.Tensor:
         """Snap discrete columns to their level midpoints (k + 0.5) / n."""

@@ -328,9 +328,9 @@ def time_ms(fn, windows: int = 7, calls: int = 10) -> float:
 
 PROFILE_TRIES = 5
 # profiler sessions run and those that traced no kernel: now and then the
-# profiler delivers no kernel record for up to three sessions in a row
-# (tools/profiler_stress.py counts them), so an empty session is retried,
-# and device times are "not measured" only if every try is empty
+# profiler delivers no kernel record for up to three sessions in a row, so
+# an empty session is retried, and device times are "not measured" only if
+# every try is empty
 PROFILER_SESSIONS = {"run": 0, "empty": 0}
 
 
