@@ -51,6 +51,8 @@ _SIGNATURES = {
     "botorch_matern_bwd2": ((_P,) * 9 + (_I,) * 7 + (_P,), _I),
     # ws, dinv, piv, Bt, rows, n, T, stream
     "botorch_whiten": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
+    # ws, iws, idx, f_a, g_a, z_trial, n_live, R, d, m, c1, max_ls, stream
+    "botorch_lbfgs_update": ((_P,) * 6 + (_I,) * 4 + (ctypes.c_double, _I, _P), _I),
     "botorch_error_string": ((_I,), ctypes.c_char_p),
 }
 

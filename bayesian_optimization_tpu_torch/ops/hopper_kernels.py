@@ -22,6 +22,14 @@ has three parts here:
   calls (one launch each), `matern_fused.bwd2_launches` the second
   derivative's (one launch each).
 
+`lbfgs_update_fused` launches one trip's update of the batched L-BFGS
+(csrc/lbfgs.cu) and nothing else: the optimizer's state, its twin
+`lbfgs_update_plain` and the choice between them are ops/optimize.py's, as
+the float64 route of the Matern covariance is models/kernels.py's. It
+raises on any input but a CUDA float32 state; `chip_smoke.py` and the
+card's tests hold it against the twin, and `lbfgs_update_fused.launches`
+counts it.
+
 The backward and the second derivative sum their blocks' partials in the
 same launch: the last block to arrive adds them up, found through an
 arrival counter in device memory that the kernel leaves at 0. Each (device,
@@ -578,8 +586,47 @@ def whiten_fused(R: torch.Tensor, B: torch.Tensor):
 whiten_fused.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# one trip's update of the batched L-BFGS (no TPU counterpart: XLA fused it)
+# ---------------------------------------------------------------------------
+
+def lbfgs_update_fused(st, idx, f_a, g_a, z_trial, max_linesearch_steps: int, c1: float) -> None:
+    """One trip's update of the live lanes idx of a batched L-BFGS state st
+    (`ops.optimize.LbfgsState`: a CUDA float32 workspace `ws` and an int64
+    one `iws`, laid out as csrc/lbfgs.cu reads them), as
+    `ops.optimize.lbfgs_update_plain` defines it, in one launch: one warp a
+    live lane, the state rewritten in place. Any other device or dtype
+    raises, as does a failed build or launch. Each launch adds one to
+    `lbfgs_update_fused.launches`."""
+    ws = st.ws
+    _require_cuda_f32("lbfgs_update_fused", ws=ws, z_trial=z_trial)
+    # the values and gradients in the state's dtype, as the twin takes them
+    idx = idx.contiguous()
+    f_a = f_a.to(torch.float32).contiguous()
+    g_a = g_a.to(torch.float32).contiguous()
+    R, m, d = st.S.shape
+    n_live = idx.numel()
+    if idx.dtype != torch.long or f_a.shape != (n_live,) or g_a.shape != (n_live, d) \
+            or z_trial.shape != (R, d) or not z_trial.is_contiguous() \
+            or not (idx.device == f_a.device == g_a.device == ws.device):
+        raise ValueError(f"lbfgs_update_fused: idx {tuple(idx.shape)} {idx.dtype}, f_a "
+                         f"{tuple(f_a.shape)}, g_a {tuple(g_a.shape)} and z_trial "
+                         f"{tuple(z_trial.shape)} (contiguous) do not fit {R} lanes of {d} "
+                         f"on {ws.device}")
+    err = _build.load_library().botorch_lbfgs_update(
+        ws.data_ptr(), st.iws.data_ptr(), idx.data_ptr(), f_a.data_ptr(), g_a.data_ptr(),
+        z_trial.data_ptr(), n_live, R, d, m, float(c1), int(max_linesearch_steps), _stream_ptr(ws),
+    )
+    _build.check(err, "lbfgs_update_fused")
+    lbfgs_update_fused.launches += 1
+
+
+lbfgs_update_fused.launches = 0
+
+
 def reset_launch_counts() -> None:
     matern_fused.launches = 0
     matern_fused.bwd_launches = 0
     matern_fused.bwd2_launches = 0
     whiten_fused.launches = 0
+    lbfgs_update_fused.launches = 0

@@ -13,21 +13,28 @@ the two-loop-recursion L-BFGS direction, Armijo backtracking, a sigmoid
 box x = lo + (hi - lo) sigmoid(z), non-finite gradients zeroed, and the
 stall exit `done = not good` kept as it is (it misses an accepted step
 that does not move; see ROADMAP Queue 3), so evaluation counts match the
-reference.
+reference. The lanes' state lives in two workspaces allocated once a run
+(`lbfgs_state`), and a trip's update of it -- acceptance, curvature
+history, the two-loop direction -- is one launch of a CUDA kernel on a CUDA
+float32 state (`hopper_kernels.lbfgs_update_fused`), its plain twin
+`lbfgs_update_plain`, which defines it, on the CPU and in float64.
 
 Inside a timed phase (utils/logging.py) each trip is timed by the spans
 "lbfgs.forward", "lbfgs.backward", "lbfgs.update" and "host_sync" (the
-live-lane read) and counted in "lbfgs.trips" and "lbfgs.lane_evals"; a
-run's concluded steps, "lbfgs.steps", are read once at its end. Outside a
-phase none of it costs more than a lookup, and no number changes.
+live-lane read) and counted in "lbfgs.trips", "lbfgs.lane_evals" and, where
+the kernel runs the update, "lbfgs.fused_updates"; a run's concluded steps,
+"lbfgs.steps", are read once at its end. Outside a phase none of it costs
+more than a lookup, and no number changes.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
 
 from ..utils.logging import count, host_sync, in_phase, span
+from .hopper_kernels import lbfgs_update_fused
 
 _Z_CLIP = 12.0  # |z| beyond this is numerically saturated in f32
 
@@ -62,6 +69,62 @@ def _value_and_grad(zfun, z, t, p, idx: torch.Tensor):
     return z_trial, f.detach(), g
 
 
+# the lanes' state, field after field in two workspaces (csrc/lbfgs.cu reads
+# the same layout): name -> shape after the lane axis, "d" and "m" the
+# variables and the history length
+_LBFGS_FLOAT_FIELDS = (("z", "d"), ("g", "d"), ("p", "d"), ("S", "md"), ("Y", "md"),
+                       ("rho", "m"), ("alpha", "m"), ("f", ""), ("gamma", ""), ("gTp", ""),
+                       ("t", ""))
+_LBFGS_INT_FIELDS = ("k", "n_probe", "n_accept", "done")
+
+
+class LbfgsState(NamedTuple):
+    """The lanes' state of a batched L-BFGS run: views into one float
+    workspace `ws` (the run's dtype) and one int64 workspace `iws`, which a
+    trip's update rewrites in place. z, g, p (R, d): point, gradient and
+    search direction; S, Y (R, m, d), rho (R, m): the circular curvature
+    history; alpha (R, m): the kernel's scratch for the recursion; f, gamma,
+    gTp, t (R,): value, H0 scale, g.p and step length; k (R,): pairs stored
+    so far; n_probe, n_accept (R,): backtracks of the current step and
+    concluded steps; done (R,): 1 once a concluded step did not improve."""
+    ws: torch.Tensor
+    iws: torch.Tensor
+    z: torch.Tensor
+    g: torch.Tensor
+    p: torch.Tensor
+    S: torch.Tensor
+    Y: torch.Tensor
+    rho: torch.Tensor
+    alpha: torch.Tensor
+    f: torch.Tensor
+    gamma: torch.Tensor
+    gTp: torch.Tensor
+    t: torch.Tensor
+    k: torch.Tensor
+    n_probe: torch.Tensor
+    n_accept: torch.Tensor
+    done: torch.Tensor
+
+
+def lbfgs_state(z0: torch.Tensor, m: int) -> LbfgsState:
+    """A run's state for the starts z0 (R, d) and a history of m, allocated
+    once: f = +inf and p = 0, so the first trip evaluates z0 itself and
+    accepts it; t = 1, gamma = 1, everything else 0."""
+    R, d = z0.shape
+    dims = {"": (), "d": (d,), "m": (m,), "md": (m, d)}
+    shapes = [(R, *dims[kind]) for _, kind in _LBFGS_FLOAT_FIELDS]
+    sizes = [math.prod(s) for s in shapes]
+    ws = torch.zeros(sum(sizes), dtype=z0.dtype, device=z0.device)
+    iws = torch.zeros(len(_LBFGS_INT_FIELDS) * R, dtype=torch.long, device=z0.device)
+    floats = {name: v.view(s) for (name, _), v, s in zip(_LBFGS_FLOAT_FIELDS, ws.split(sizes), shapes)}
+    st = LbfgsState(ws, iws, **floats, **dict(zip(_LBFGS_INT_FIELDS, iws.split(R))))
+    st.z.copy_(z0)
+    st.f.fill_(math.inf)
+    st.gamma.fill_(1.0)
+    st.t.fill_(1.0)
+    return st
+
+
 def _direction(g, S, Y, rho, k, gamma, m: int):
     """-H g for each lane by the two-loop recursion of the JAX package's
     `_lbfgs_compact.direction`, step for step, with the lanes as a leading
@@ -70,8 +133,7 @@ def _direction(g, S, Y, rho, k, gamma, m: int):
     gathered into age order, so step i of the backward loop reads the
     (i+1)-th newest pair, slot (k - 1 - i) mod m, as the reference does.
     The per-step scalar factors (valid * rho for the dot products, valid for
-    the updates) are folded into the gathered vectors once, which leaves
-    two launches per backward step and three per forward step."""
+    the updates) are folded into the gathered vectors once."""
     R_, d = g.shape
     nv = torch.clamp(k, max=m)
     pos = torch.arange(m, device=g.device)
@@ -99,88 +161,103 @@ def _direction(g, S, Y, rho, k, gamma, m: int):
     return torch.where(ok[:, None], p, -g)
 
 
-def _lbfgs_batched(zfun, z0, max_iter: int, memory_size: int, max_linesearch_steps: int):
-    R, d = z0.shape
-    m = memory_size
-    dt, dev = z0.dtype, z0.device
-    c1 = 1e-4
-    lanes = torch.arange(R, device=dev)
-    z = z0.clone()
-    f = torch.full((R,), float("inf"), dtype=dt, device=dev)
-    g = torch.zeros((R, d), dtype=dt, device=dev)
-    S = torch.zeros((R, m, d), dtype=dt, device=dev)
-    Y = torch.zeros((R, m, d), dtype=dt, device=dev)
-    rho = torch.zeros((R, m), dtype=dt, device=dev)
-    k = torch.zeros((R,), dtype=torch.long, device=dev)
-    gamma = torch.ones((R,), dtype=dt, device=dev)
-    # the first trip evaluates z0 itself: p = 0 and f = +inf force acceptance
-    p = torch.zeros((R, d), dtype=dt, device=dev)
-    gTp = torch.zeros((R,), dtype=dt, device=dev)
-    t = torch.ones((R,), dtype=dt, device=dev)
-    n_probe = torch.zeros((R,), dtype=torch.long, device=dev)
-    n_accept = torch.zeros((R,), dtype=torch.long, device=dev)
-    done = torch.zeros((R,), dtype=torch.bool, device=dev)
+LBFGS_C1 = 1e-4  # the Armijo constant
 
+
+def lbfgs_update_plain(st: LbfgsState, idx, f_a, g_a, z_trial, max_linesearch_steps: int,
+                       c1: float = LBFGS_C1) -> None:
+    """Plain twin of `hopper_kernels.lbfgs_update_fused`: one trip's update of the live
+    lanes idx (n_live,), in place in st, from their values f_a (n_live,)
+    and gradients g_a (n_live, d) at the trial points z_trial (R, d) = z +
+    t p (clipped). Non-finite gradients count as 0. A lane whose trial
+    passes Armijo, or whose line search reached its cap, concludes its step:
+    it moves to the trial point if that is finite and not worse (else it
+    stays, and is done: the stall exit of the reference), stores the pair
+    (s, y) in slot k mod m if its curvature holds, and takes its next
+    direction by `_direction`, with t = 1. Every other live lane halves t.
+    Lanes outside idx are not touched."""
+    m = st.S.shape[1]
+    dt = st.ws.dtype
+    z, f, g, S, Y, rho, k, gamma, p, gTp, t, n_probe, n_accept, done = (
+        x[idx] for x in (st.z, st.f, st.g, st.S, st.Y, st.rho, st.k, st.gamma, st.p, st.gTp,
+                         st.t, st.n_probe, st.n_accept, st.done))
+    z_t = z_trial[idx]
+    f_t = f_a.to(dt)
+    g_t = g_a.to(dt)
+    g_t = torch.where(torch.isfinite(g_t), g_t, torch.zeros_like(g_t))
+
+    armijo = f_t <= f + c1 * t * gTp
+    stop = armijo | (n_probe >= max_linesearch_steps)
+
+    # step concludes: accept if finite and improving
+    good = torch.isfinite(f_t) & (f_t <= f) & torch.isfinite(z_t).all(-1)
+    z_new = torch.where(good[:, None], z_t, z)
+    f_new = torch.where(good, f_t, f)
+    g_new = torch.where(good[:, None], g_t, g)
+    s = z_new - z
+    y = g_new - g
+    sy = (s * y).sum(-1)
+    curv_ok = good & (sy > 1e-10 * s.norm(dim=-1) * y.norm(dim=-1) + 1e-30)
+    slot = torch.remainder(k, m)
+    lanes = torch.arange(idx.numel(), device=idx.device)
+    S_new, Y_new, rho_new = S.clone(), Y.clone(), rho.clone()
+    S_new[lanes, slot] = torch.where(curv_ok[:, None], s, S[lanes, slot])
+    Y_new[lanes, slot] = torch.where(curv_ok[:, None], y, Y[lanes, slot])
+    rho_new[lanes, slot] = torch.where(curv_ok, 1.0 / sy.clamp_min(1e-30), rho[lanes, slot])
+    k_new = k + curv_ok.long()
+    gamma_new = torch.where(curv_ok, sy / (y * y).sum(-1).clamp_min(1e-30), gamma)
+    p_new = _direction(g_new, S_new, Y_new, rho_new, k_new, gamma_new, m)
+
+    # lanes whose step concluded take it; the others (probes) halve t
+    a1, a2 = stop[:, None], stop[:, None, None]
+    st.z[idx] = torch.where(a1, z_new, z)
+    st.f[idx] = torch.where(stop, f_new, f)
+    st.g[idx] = torch.where(a1, g_new, g)
+    st.S[idx] = torch.where(a2, S_new, S)
+    st.Y[idx] = torch.where(a2, Y_new, Y)
+    st.rho[idx] = torch.where(a1, rho_new, rho)
+    st.k[idx] = torch.where(stop, k_new, k)
+    st.gamma[idx] = torch.where(stop, gamma_new, gamma)
+    st.p[idx] = torch.where(a1, p_new, p)
+    st.gTp[idx] = torch.where(stop, (g_new * p_new).sum(-1), gTp)
+    st.t[idx] = torch.where(stop, torch.ones_like(t), 0.5 * t)
+    st.n_probe[idx] = torch.where(stop, torch.zeros_like(n_probe), n_probe + 1)
+    st.n_accept[idx] = n_accept + stop.long()
+    # the stall exit, as the reference has it: a concluded step that did
+    # not improve leaves the lane at a fixed point
+    st.done[idx] = torch.where(stop, (~good).long(), done)
+
+
+def _update(st: LbfgsState, idx, f_a, g_a, z_trial, max_linesearch_steps: int) -> None:
+    """One trip's update of the live lanes: one launch of csrc/lbfgs.cu
+    (`hopper_kernels.lbfgs_update_fused`, counted in "lbfgs.fused_updates")
+    on a CUDA state, the twin on the CPU and in float64 on any device. A
+    CUDA state in another dtype, a failed build or a failed launch raises."""
+    if st.ws.device.type == "cpu" or st.ws.dtype == torch.float64:
+        lbfgs_update_plain(st, idx, f_a, g_a, z_trial, max_linesearch_steps)
+        return
+    lbfgs_update_fused(st, idx, f_a, g_a, z_trial, max_linesearch_steps, LBFGS_C1)
+    count("lbfgs.fused_updates")
+
+
+def _lbfgs_batched(zfun, z0, max_iter: int, memory_size: int, max_linesearch_steps: int):
+    st = lbfgs_state(z0, memory_size)  # the first trip evaluates and accepts z0
     while True:
         with host_sync():
-            active = ~done & (n_accept < max_iter + 1)
+            active = (st.done == 0) & (st.n_accept < max_iter + 1)
             idx = active.nonzero()[:, 0]
             n_live = idx.numel()
         if n_live == 0:
             break
         count("lbfgs.trips")
         count("lbfgs.lane_evals", n_live)
-        z_trial, f_a, g_a = _value_and_grad(zfun, z, t, p, idx)
+        z_trial, f_a, g_a = _value_and_grad(zfun, st.z, st.t, st.p, idx)
         with span("lbfgs.update"):
-            f_t = torch.full((R,), float("inf"), dtype=dt, device=dev)
-            g_t = torch.zeros((R, d), dtype=dt, device=dev)
-            f_t[idx] = f_a
-            g_t[idx] = torch.where(torch.isfinite(g_a), g_a, torch.zeros_like(g_a))
-
-            armijo = f_t <= f + c1 * t * gTp
-            stop = armijo | (n_probe >= max_linesearch_steps)
-
-            # step concludes: accept if finite and improving
-            good = torch.isfinite(f_t) & (f_t <= f) & torch.isfinite(z_trial).all(-1)
-            z_new = torch.where(good[:, None], z_trial, z)
-            f_new = torch.where(good, f_t, f)
-            g_new = torch.where(good[:, None], g_t, g)
-            s = z_new - z
-            y = g_new - g
-            sy = (s * y).sum(-1)
-            curv_ok = good & (sy > 1e-10 * s.norm(dim=-1) * y.norm(dim=-1) + 1e-30)
-            slot = torch.remainder(k, m)
-            S_new, Y_new, rho_new = S.clone(), Y.clone(), rho.clone()
-            S_new[lanes, slot] = torch.where(curv_ok[:, None], s, S[lanes, slot])
-            Y_new[lanes, slot] = torch.where(curv_ok[:, None], y, Y[lanes, slot])
-            rho_new[lanes, slot] = torch.where(curv_ok, 1.0 / sy.clamp_min(1e-30), rho[lanes, slot])
-            k_new = k + curv_ok.long()
-            gamma_new = torch.where(curv_ok, sy / (y * y).sum(-1).clamp_min(1e-30), gamma)
-            p_new = _direction(g_new, S_new, Y_new, rho_new, k_new, gamma_new, m)
-
-            acc = active & stop      # lanes whose step concluded this trip
-            probe = active & ~stop   # lanes still backtracking: halve t
-            a1, a2 = acc[:, None], acc[:, None, None]
-            z = torch.where(a1, z_new, z)
-            f = torch.where(acc, f_new, f)
-            g = torch.where(a1, g_new, g)
-            S = torch.where(a2, S_new, S)
-            Y = torch.where(a2, Y_new, Y)
-            rho = torch.where(a1, rho_new, rho)
-            k = torch.where(acc, k_new, k)
-            gamma = torch.where(acc, gamma_new, gamma)
-            p = torch.where(a1, p_new, p)
-            gTp = torch.where(acc, (g_new * p_new).sum(-1), gTp)
-            t = torch.where(acc, torch.ones_like(t), torch.where(probe, 0.5 * t, t))
-            n_probe = torch.where(acc, torch.zeros_like(n_probe), n_probe + probe.long())
-            n_accept = n_accept + acc.long()
-            # the stall exit, as the reference has it: a concluded step that did
-            # not improve leaves the lane at a fixed point
-            done = torch.where(acc, ~good, done)
+            _update(st, idx, f_a, g_a, z_trial, max_linesearch_steps)
     if in_phase():  # the lanes' concluded steps, read once a run
         with host_sync():
-            count("lbfgs.steps", int(n_accept.sum()))
-    return z, f
+            count("lbfgs.steps", int(st.n_accept.sum()))
+    return st.z, st.f
 
 
 def minimize_restarts(

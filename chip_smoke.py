@@ -35,8 +35,14 @@ non-zero, and no phase's exception is caught:
      the launch counters are zeroed just before and read just after, and
      every kernel (the Matern backward included) must have launched; one
      backward call is one L-BFGS trip, so the counters also give the trips;
-     then the likelihood and gradient at this size against the plain path
-     on the CPU;
+     the L-BFGS update kernel launched once a trip (trips counted at the
+     objective's calls); then the likelihood and gradient at this size
+     against the plain path on the CPU; (b) the L-BFGS update kernel
+     (csrc/lbfgs.cu) against its twin at every trip of a warm refit (2
+     lanes) and an EI argmax (25 lanes) on a copy of that GP, each trip's
+     state replayed: the same decisions and moved points bit for bit, the
+     other values within 2e-5 relative a lane, two launches the same bits;
+     its ms a call, device ms and bound at each of the two shapes;
   5. one fit at n=4000 (bucket 4096, the hybrid factorisation);
   6. fmin on the 2-D sphere (parity config 1 cut to 15 of its 30
      evaluations, seed 42);
@@ -165,6 +171,7 @@ Bounds: the least time the card could take for a call, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its FP32 operations over 67 TFLOP/s (an H100 SXM's published peaks).
 """
+import copy
 import json
 import math
 import os
@@ -208,13 +215,14 @@ from bayesian_optimization_tpu_torch.models.random_forest import RFState, rf_pre
 from bayesian_optimization_tpu_torch.optim import argmax as argmax_module
 from bayesian_optimization_tpu_torch.optim.argmax import make_unit_criterion
 from bayesian_optimization_tpu_torch.ops import _build
+from bayesian_optimization_tpu_torch.ops import optimize
 from bayesian_optimization_tpu_torch.ops.box_decomposition import NondominatedPartitioning
 from bayesian_optimization_tpu_torch.ops.ehvi import QEHVI_N_SAMPLES, ehvi
 from bayesian_optimization_tpu_torch.ops.hypervolume import _hv_grid
 from bayesian_optimization_tpu_torch.space import Discrete, Integer, Real
 from bayesian_optimization_tpu_torch.ops.hopper_kernels import (
-    _nu_code, matern_bwd2_fused, matern_bwd2_plain, matern_bwd_fused, matern_bwd_plain,
-    matern_fused, matern_plain, reset_launch_counts, whiten_fused, whiten_plain,
+    _nu_code, lbfgs_update_fused, matern_bwd2_fused, matern_bwd2_plain, matern_bwd_fused,
+    matern_bwd_plain, matern_fused, matern_plain, reset_launch_counts, whiten_fused, whiten_plain,
 )
 from bayesian_optimization_tpu_torch.ops.linalg import (
     _block_tri_inv, _whiten_parts, chol_and_inv, chol_inv_whiten, whiten, whiten_vjp,
@@ -231,6 +239,12 @@ WHITEN_W_TOL = 1e-3    # max |W - W_twin| / max(1, max |W_twin|)
 CHOL_INV_TOL = 1e-3    # max |L^-1 - plain| / max |plain|
 WHITEN_GRAD_TOL = 1e-3  # max |dR - dR_f64| / max |dR_f64|, as tests/test_linalg.py holds the VJP
 SOLVE_OWN_TOL = 1e-5    # a solver's own error in whiten's VJP, relative, at cond(R) ~3e7
+LBFGS_TOL = 2e-5        # max |v - v_twin| / max(1, max |v_twin|) a lane, as the card's tests hold it
+# the L-BFGS state's fields that the update kernel must leave as its twin
+# does, bit for bit (its decisions, the moved points and gradients, the
+# stored pairs), and those it computes in another order
+LBFGS_EXACT = ("k", "n_probe", "n_accept", "done", "t", "z", "g", "S", "Y")
+LBFGS_CLOSE = ("f", "rho", "gamma", "p", "gTp")
 # phase 8's mixed fit ends on an ill-conditioned R (theta at its bounds),
 # where the CPU float32 path's NLL is 1.55e-4 off float64 (PERF.md): the
 # card's within twice that
@@ -983,17 +997,141 @@ def main_path(X, y):
         torch.cuda.synchronize()
         return t1 - t0, time.perf_counter() - t1
 
+    # the L-BFGS trips, one a call of the objective's value and gradient
+    trips, value_and_grad = [0], optimize._value_and_grad
+
+    def counted(*args):
+        trips[0] += 1
+        return value_and_grad(*args)
+
     reset_launch_counts()
-    cold = one_iter()  # cold fit: the full MLE ladder
-    one_iter()  # the warm-refit path, first time
-    parts = [one_iter() for _ in range(3)]
+    optimize._value_and_grad = counted
+    try:
+        cold = one_iter()  # cold fit: the full MLE ladder
+        one_iter()  # the warm-refit path, first time
+        parts = [one_iter() for _ in range(3)]
+    finally:
+        optimize._value_and_grad = value_and_grad
     launches = counts()
-    return gp, out, cold, parts, launches
+    return gp, out, cold, parts, launches, trips[0]
 
 
 def counts() -> dict:
     return {"matern_fused": matern_fused.launches, "matern_fused_bwd": matern_fused.bwd_launches,
-            "matern_fused_bwd2": matern_fused.bwd2_launches, "whiten_fused": whiten_fused.launches}
+            "matern_fused_bwd2": matern_fused.bwd2_launches, "whiten_fused": whiten_fused.launches,
+            "lbfgs_update_fused": lbfgs_update_fused.launches}
+
+
+def lbfgs_bound(R: int, d: int, m: int):
+    """The L-BFGS update's bound: each lane's state (z, g, p, S, Y, rho,
+    the recursion's scratch, f, gamma, gTp, t: 3 d + 2 m d + 2 m + 4 floats;
+    4 int64 counters) read and written once, its value, gradient and trial
+    point and its index read once; 8 m d operations for the two-loop
+    recursion and ~12 d for the tests and the pair."""
+    floats = 3 * d + 2 * m * d + 2 * m + 4
+    return bound(R * (2 * (4 * floats + 8 * 4) + 4 * (1 + 2 * d) + 8), R * (8 * m * d + 12 * d))
+
+
+def lbfgs_gap(got, want) -> float:
+    """The largest of |got - want| / max(1, max |want|) over the lanes (the
+    leading axis), where both are finite; inf where they are not finite at
+    the same entries or differ there."""
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(
+            got[~fin].nan_to_num(nan=7.0), want[~fin].nan_to_num(nan=7.0)):
+        return math.inf
+    R = want.shape[0]
+    g, w = (torch.where(fin, v, torch.zeros_like(v)).reshape(R, -1) for v in (got, want))
+    return float(((g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1.0)).max())
+
+
+def check_lbfgs_update(gp, X, y):
+    """4b: every trip's update of a warm refit and of an EI argmax (25
+    restarts) on a copy of phase 4's GP, recorded as the path ran it (state,
+    live lanes, values, gradients, trial points) and replayed: the kernel
+    twice and the twin once from the recorded state. Returns the worst gap
+    of LBFGS_CLOSE's fields, the (2, ., 10) refit's ms, twin ms, bound ms,
+    bound_by and device ms, and a row a shape."""
+    records, route = [], optimize._update
+
+    def recording(st, idx, f_a, g_a, z_trial, max_ls):
+        records.append((st.ws.clone(), st.iws.clone(), tuple(st.S.shape), idx.clone(), f_a.clone(),
+                        g_a.clone(), z_trial.clone(), max_ls))
+        route(st, idx, f_a, g_a, z_trial, max_ls)
+
+    gp = copy.deepcopy(gp)
+    argmax = AcquisitionArgmax(RealSpace([[0.0, 1.0]] * DIM).encoding(), method="BFGS",
+                               n_restart=5 * DIM, seed=1)
+    optimize._update = recording
+    try:
+        gp.fit(X, y)  # the warm refit
+        argmax(gp.posterior, gp.config, "EI", {"plugin": float(y.min())})
+    finally:
+        optimize._update = route
+    torch.cuda.synchronize()
+
+    def state(rec):
+        ws, iws, (R, m, d) = rec[:3]
+        st = optimize.lbfgs_state(torch.zeros((R, d), device="cuda"), m)
+        st.ws.copy_(ws)
+        st.iws.copy_(iws)
+        return st
+
+    worst, by_shape = 0.0, {}
+    for rec in records:
+        idx, f_a, g_a, z_trial, max_ls = rec[3:]
+        a, b, t = state(rec), state(rec), state(rec)
+        lbfgs_update_fused(a, idx, f_a, g_a, z_trial, max_ls, optimize.LBFGS_C1)
+        lbfgs_update_fused(b, idx, f_a, g_a, z_trial, max_ls, optimize.LBFGS_C1)
+        optimize.lbfgs_update_plain(t, idx, f_a, g_a, z_trial, max_ls)
+        torch.cuda.synchronize()
+        assert torch.equal(a.ws.nan_to_num(nan=7.0), b.ws.nan_to_num(nan=7.0)) and torch.equal(
+            a.iws, b.iws), "the L-BFGS update kernel is not bit-identical over two launches"
+        for name in LBFGS_EXACT:
+            assert torch.equal(getattr(a, name).nan_to_num(nan=7.0), getattr(t, name).nan_to_num(nan=7.0)), \
+                (rec[2], name)
+        gap = max(lbfgs_gap(getattr(a, name), getattr(t, name)) for name in LBFGS_CLOSE)
+        assert gap <= LBFGS_TOL, (rec[2], gap)
+        worst = max(worst, gap)
+        shape = by_shape.setdefault(rec[2], {"trips": 0, "lanes": 0, "gap": 0.0, "rec": rec})
+        shape["trips"] += 1
+        shape["lanes"] += idx.numel()
+        shape["gap"] = max(shape["gap"], gap)
+        if idx.numel() > shape["rec"][3].numel():
+            shape["rec"] = rec  # time the trip with the most live lanes
+
+    rows, head = [], None
+    for (R, m, d), sh in sorted(by_shape.items()):
+        rec = sh["rec"]
+        idx, f_a, g_a, z_trial, max_ls = rec[3:]
+        st = state(rec)
+
+        def kernel():
+            st.ws.copy_(rec[0])
+            st.iws.copy_(rec[1])
+            lbfgs_update_fused(st, idx, f_a, g_a, z_trial, max_ls, optimize.LBFGS_C1)
+
+        def twin():
+            st.ws.copy_(rec[0])
+            st.iws.copy_(rec[1])
+            optimize.lbfgs_update_plain(st, idx, f_a, g_a, z_trial, max_ls)
+
+        t_k, t_p = time_ms(kernel), time_ms(twin)
+        p_k = device_ms_by_kernel(kernel)
+        d_k = None if p_k is None else sum(ms for name, ms in p_k.items() if "lbfgs" in name)
+        b_ms, b_by = lbfgs_bound(R, d, m)
+        rows.append({"path": "warm refit" if R == 2 else "EI argmax", "shape": [R, d, m],
+                     "trips": sh["trips"], "live_lanes": sh["lanes"], "max_rel_err": sh["gap"],
+                     "ms": t_k, "plain_ms": t_p, "device_ms": d_k, "bound_ms": b_ms, "bound_by": b_by})
+        log(f"  L-BFGS update (R, d, m) = ({R}, {d}, {m}): {sh['trips']} trips, {sh['lanes']} live "
+            f"lanes, decisions and moved points equal to the twin's, worst gap {sh['gap']:.2e} (tol "
+            f"{LBFGS_TOL}), two launches bit-identical; at {idx.numel()} live lanes the kernel "
+            f"{t_k:.4f} ms/call with the state's restore ({fmt(d_k)} ms on the device), bound "
+            f"{b_ms:.3g} ms ({b_by}), share {fmt(ratio(b_ms, d_k), '.4f')}; twin {t_p:.4f} ms/call")
+        if R == 2:
+            head = (t_k, t_p, b_ms, b_by, d_k)
+    assert {R for R, _, _ in by_shape} == {2, 5 * DIM}, sorted(by_shape)
+    return worst, head, rows
 
 
 def live(c: dict) -> bool:
@@ -2849,7 +2987,7 @@ def main() -> None:
     # 4. main path at bench size
     stamp("phase 4")
     X, y = bench_data(1000)
-    gp, out, cold, parts, launches = main_path(X, y)
+    gp, out, cold, parts, launches, lbfgs_trips = main_path(X, y)
     times = [f + a for f, a in parts]
     log(f"[4] fit + EI argmax, n=1000 d=5: median {statistics.median(times):.4f} s, "
         f"min {min(times):.4f} s over {len(times)} reps {[round(t, 4) for t in times]}; "
@@ -2859,7 +2997,9 @@ def main() -> None:
     trips = launches["matern_fused_bwd"]  # one Matern backward per L-BFGS trip (fit or argmax)
     log(f"  L-BFGS trips over the {len(parts) + 2} iterations (fit and argmax): {trips}, "
         f"{trips / (len(parts) + 2):.1f} per iteration; matern_fused forward launches per trip "
-        f"{launches['matern_fused'] / trips:.3f}")
+        f"{launches['matern_fused'] / trips:.3f}; counted at the objective {lbfgs_trips}, L-BFGS "
+        f"update launches {launches['lbfgs_update_fused']}")
+    assert launches["lbfgs_update_fused"] == lbfgs_trips > 0, (launches, lbfgs_trips)
     u, val = out["u"], out["val"]
     assert np.all(np.isfinite(u)) and math.isfinite(val) and u.shape == (DIM,)
     state = gp.posterior
@@ -2882,6 +3022,10 @@ def main() -> None:
         f"{err_v:.3e} (tol 1e-4), gradient {err_g:.3e} (tol 1e-3; absolute {r['abs_g']:.3e}, "
         f"largest entry {r['scale_g']:.3e})")
     assert err_v < 1e-4 and err_g < 1e-3, (err_v, err_g)
+
+    stamp("phase 4b")
+    log("[4b] the L-BFGS update kernel against its twin at every trip of a warm refit and an EI argmax")
+    l_err, (l_ms, l_plain, l_bound, l_by, l_dev), l_rows = check_lbfgs_update(gp, X, y)
 
     # 5. hybrid factorisation
     stamp("phase 5")
@@ -2971,10 +3115,13 @@ def main() -> None:
 
     # ms, plain_ms and bound_ms: matern_fused at (10, 1024, 1024), its
     # backward at (2, 1024, 1024) (theta only), its second derivative at
-    # (1, 1, 1024), whiten_fused at (2, 1024); "shapes" the batch and engine
-    # paths' shapes; "launches" the main path's count (the second
-    # derivative's: the Hessian path's, 13c), "launches_by_path" every
-    # path's. No single PyTorch call computes any of the four functions
+    # (1, 1, 1024), whiten_fused at (2, 1024), the L-BFGS update at the warm
+    # refit's (2, d, 10) (it replaces no TPU kernel: XLA fused the JAX
+    # loop's update); "shapes" the batch and engine paths' shapes (the
+    # update's: the refit's and the argmax's); "launches" the main path's
+    # count (the second derivative's: the Hessian path's, 13c),
+    # "launches_by_path" every path's. No single PyTorch call computes any
+    # of the five functions
     def by_path(name):
         return {path: c[name] for path, c in paths.items()}
 
@@ -3003,6 +3150,12 @@ def main() -> None:
          "max_abs_err": w_err, "ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound,
          "bound_by": w_by, "library_ms": None, "shapes": w_rows,
          "launches_by_path": by_path("whiten_fused")},
+        {"name": "lbfgs_update_fused", "route": "cuda",
+         "source": "bayesian_optimization_tpu_torch/csrc/lbfgs.cu",
+         "replaces": None, "launches": launches["lbfgs_update_fused"],
+         "max_rel_err": l_err, "ms": l_ms, "plain_ms": l_plain, "device_ms": l_dev,
+         "bound_ms": l_bound, "bound_by": l_by, "library_ms": None, "shapes": l_rows,
+         "launches_by_path": by_path("lbfgs_update_fused")},
     ]
     log(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -981,3 +981,145 @@ def test_sharded_argmax_on_a_two_entry_mesh(dev, method):
             want_gathers = 1
     assert mesh.gathers == want_gathers and matern_fused.launches > 0
     assert abs(float(got - ref)) <= 1e-4 * abs(float(ref)), (float(got), float(ref))
+
+
+# (R, d, m) of the L-BFGS update kernel: the argmax's 25 lanes, the warm
+# refit's 2, the cold ladder's first rung, a q = 8 argmax's 200, and wide
+# or short-history lanes (d past one and two warps' width, m = 4)
+LBFGS_SHAPES = [(25, 5, 10), (2, 6, 10), (10, 6, 10), (200, 5, 10), (25, 40, 10), (3, 70, 4)]
+LBFGS_DECISIONS = ("k", "n_probe", "n_accept", "done", "t")
+LBFGS_VALUES = ("z", "f", "g", "S", "Y", "rho", "gamma", "p", "gTp")
+
+
+def _lbfgs_trip(dev, R, d, m, seed, live):
+    from test_torch_optimize_update import random_trip
+    return random_trip(R, d, m, seed, live=live, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("live", [1.0, 0.5])
+@pytest.mark.parametrize("shape", LBFGS_SHAPES, ids=str)
+def test_lbfgs_update_kernel_matches_twin(dev, shape, live):
+    """One launch against the twin (float32, on the card) on the same random
+    states: the same accept, probe, curvature and stall decisions, the
+    values within float32 rounding (the moved points, gradients and stored
+    pairs exactly), the lanes that are not live untouched, and a second
+    launch on the same inputs the same bits."""
+    from bayesian_optimization_tpu_torch.ops import hopper_kernels as hk
+    from bayesian_optimization_tpu_torch.ops.optimize import LBFGS_C1, lbfgs_update_plain
+
+    R, d, m = shape
+    for seed in range(3):
+        st, idx, f_a, g_a, z_trial, _ = _lbfgs_trip(dev, R, d, m, seed, live)
+        twin, again = (_lbfgs_trip(dev, R, d, m, seed, live)[0] for _ in range(2))
+        before = {n: getattr(st, n).clone() for n in LBFGS_DECISIONS + LBFGS_VALUES}
+        launches = hk.lbfgs_update_fused.launches
+        hk.lbfgs_update_fused(st, idx, f_a, g_a, z_trial, 20, LBFGS_C1)
+        hk.lbfgs_update_fused(again, idx, f_a, g_a, z_trial, 20, LBFGS_C1)
+        lbfgs_update_plain(twin, idx, f_a, g_a, z_trial, 20)
+        torch.cuda.synchronize()
+        assert hk.lbfgs_update_fused.launches == launches + 2
+        assert torch.equal(st.ws.nan_to_num(nan=7.0), again.ws.nan_to_num(nan=7.0))
+        assert torch.equal(st.iws, again.iws)
+        for name in LBFGS_DECISIONS + ("z", "g", "S", "Y"):
+            assert torch.equal(getattr(st, name), getattr(twin, name)), (seed, name)
+        for name in ("f", "rho", "gamma", "p", "gTp"):
+            got, want = getattr(st, name), getattr(twin, name)
+            scale = want.abs().reshape(R, -1).amax(-1).clamp_min(1.0)
+            err = (got - want).abs().reshape(R, -1).amax(-1)
+            assert bool((err <= 2e-5 * scale).all()), (seed, name, float((err / scale).max()))
+        out = torch.ones(R, dtype=torch.bool, device=dev)
+        out[idx] = False
+        for name, old in before.items():
+            assert torch.equal(getattr(st, name)[out], old[out]), (seed, name)
+
+
+def _convex_quartic(X):
+    w = torch.tensor([1.0, 2.0, 3.0, 5.0, 8.0], dtype=X.dtype, device=X.device)
+    return (0.5 * w * (X - 0.5) ** 2 + 0.25 * (X - 0.5) ** 4).sum(-1)
+
+
+def _rosenbrock(X):
+    return (100.0 * (X[:, 1:] - X[:, :-1] ** 2) ** 2 + (1.0 - X[:, :-1]) ** 2).sum(-1)
+
+
+def _whole_run(fun, x0, max_iter):
+    """(objective calls, the batch sizes they saw, `minimize_restarts`'
+    result, the phase's counters, kernel launches) of one run in a phase."""
+    from bayesian_optimization_tpu_torch.ops import hopper_kernels as hk
+    from bayesian_optimization_tpu_torch.ops import optimize
+    from bayesian_optimization_tpu_torch.utils import logging as tracing
+    from bayesian_optimization_tpu_torch.utils.logging import PhaseTimer
+
+    rows = []
+
+    def counted(X):
+        rows.append(X.shape[0])
+        return fun(X)
+
+    timer = PhaseTimer()
+    launches = hk.lbfgs_update_fused.launches
+    token = tracing._PHASE.set((timer, "probe"))
+    try:
+        res = optimize.minimize_restarts(counted, x0, -3.0, 3.0, max_iter=max_iter)
+    finally:
+        tracing._PHASE.reset(token)
+    torch.cuda.synchronize()
+    return rows, res, timer.snapshot(), hk.lbfgs_update_fused.launches - launches
+
+
+# (objective, steps): a convex quartic, and Rosenbrock's valley part way
+# along it (20 steps: the lanes still moving) and at its end (60 steps:
+# every lane at a minimum, stepping on in place until its stall exit)
+WHOLE_RUNS = [(_convex_quartic, 6), (_rosenbrock, 20), (_rosenbrock, 60)]
+
+
+@pytest.mark.parametrize("fun, max_iter", WHOLE_RUNS, ids=lambda v: getattr(v, "__name__", str(v)))
+def test_lbfgs_whole_run_kernel_against_twin(dev, monkeypatch, fun, max_iter):
+    """`minimize_restarts` (25 restarts in 5-D) with the kernel, and with
+    its twin in its place: one launch and one `lbfgs.fused_updates` a trip
+    with the kernel, none with the twin, and the ends as close as the
+    twin's own: within twice the farthest the twin's ends move when each
+    start moves by one ulp (8 such runs), plus 8 float32 ulps of the box's
+    edge (x) or of the value (f, relative past 1): the float32 path cannot
+    tell that from the kernel's other rounding. Where those runs keep the
+    twin's trips (the lanes still moving), the kernel keeps them too; at a
+    minimum a lane steps on in place until its stall exit, and rounding
+    sets how long (Rosenbrock at 60 steps: hundreds of trips either way)."""
+    from bayesian_optimization_tpu_torch.ops import optimize
+
+    x0 = torch.rand((25, 5), generator=torch.Generator().manual_seed(3)).to(dev) * 4.0 - 2.0
+    rows_k, res_k, snap, fused = _whole_run(fun, x0, max_iter)
+    assert fused == len(rows_k) == snap["probe/lbfgs.trips"] == snap["probe/lbfgs.fused_updates"]
+    monkeypatch.setattr(optimize, "_update", optimize.lbfgs_update_plain)
+    rows_t, res_t, snap, fused = _whole_run(fun, x0, max_iter)
+    assert fused == 0 and "probe/lbfgs.fused_updates" not in snap
+    assert snap["probe/lbfgs.trips"] == len(rows_t)
+    spread_x, spread_f, same_trips = 0.0, 0.0, True
+    for s in range(8):
+        up = torch.rand(x0.shape, generator=torch.Generator().manual_seed(100 + s)).to(dev) < 0.5
+        moved = torch.nextafter(x0, torch.where(up, 9.0, -9.0))
+        rows_w, res_w, _, _ = _whole_run(fun, moved, max_iter)
+        spread_x = max(spread_x, float((res_w.x - res_t.x).abs().max()))
+        spread_f = max(spread_f, float(((res_w.fun - res_t.fun).abs()
+                                        / res_t.fun.abs().clamp_min(1.0)).max()))
+        same_trips &= rows_w == rows_t
+    gap_x = float((res_k.x - res_t.x).abs().max())
+    gap_f = float(((res_k.fun - res_t.fun).abs() / res_t.fun.abs().clamp_min(1.0)).max())
+    if same_trips:
+        assert rows_k == rows_t
+    eps = torch.finfo(torch.float32).eps
+    assert gap_x <= 2.0 * spread_x + 8 * 3.0 * eps, (gap_x, spread_x)
+    assert gap_f <= 2.0 * spread_f + 8 * eps, (gap_f, spread_f)
+
+
+def test_lbfgs_update_float64_on_the_card_runs_the_twin(dev):
+    from bayesian_optimization_tpu_torch.ops import hopper_kernels as hk
+    from bayesian_optimization_tpu_torch.ops.optimize import _update, lbfgs_state
+
+    st, idx, f_a, g_a, z_trial, _ = _lbfgs_trip(dev, 25, 5, 10, 0, 0.75)
+    st64 = lbfgs_state(st.z.double(), 10)
+    launches = hk.lbfgs_update_fused.launches
+    _update(st64, idx, f_a.double(), g_a.double(), z_trial.double(), 20)
+    assert hk.lbfgs_update_fused.launches == launches
+    with pytest.raises(NotImplementedError):
+        _update(lbfgs_state(st.z.half(), 10), idx, f_a, g_a, z_trial.half(), 20)

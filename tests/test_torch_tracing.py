@@ -293,3 +293,24 @@ def test_host_syncs_are_the_synchronisations_cuda_sees():
     trips = after["arg_max_acquisition/lbfgs.trips"] - before.get("arg_max_acquisition/lbfgs.trips", 0)
     assert sum(counted.values()) == len(seen), (counted, sorted(set(seen)))
     assert len(seen) > trips > 0
+
+
+@pytest.mark.parametrize("device, dtype", [
+    ("cpu", torch.float32), ("cpu", torch.float64),
+    pytest.param("cuda", torch.float32, marks=pytest.mark.cuda),
+    pytest.param("cuda", torch.float64, marks=pytest.mark.cuda)])
+def test_fused_updates_count_the_trips_the_kernel_runs(device, dtype):
+    """`lbfgs.fused_updates` is one a trip where the update is the CUDA
+    kernel (a CUDA float32 run) and 0 where its twin runs (the CPU, and
+    float64 on any device)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    A, b, x0 = (v.to(device=device, dtype=dtype) for v in _problem(6, d=4, seed=13))
+    calls = []
+    timer = PhaseTimer()
+    with _Phase(timer):
+        minimize_restarts(_quadratic(calls, A, b), x0, -3.0, 3.0, max_iter=12)
+    snap = timer.snapshot()
+    fused = device == "cuda" and dtype == torch.float32
+    assert snap["probe/lbfgs.trips"] == len(calls) > 0
+    assert snap.get("probe/lbfgs.fused_updates", 0) == (len(calls) if fused else 0)
