@@ -11,6 +11,8 @@ factorisation of float32 on the card goes through the hand kernel
 - n > 1024: `_factor_hybrid`, Schur updates as torch.matmul and one
   `whiten_fused` call per 1024-wide diagonal block, which also solves that
   block's subdiagonal panel and right-hand side in the same launch sequence.
+  Inside a timed phase it is the span "linalg.hybrid", and the counter
+  "linalg.hybrid_panels" adds its superpanels (utils/logging.py).
 
 The backward of `whiten` solves with L^T in the JAX package's superpanel
 form (`_super_inv`, `tri_solve_upper_t_super`): the explicit inverses of
@@ -44,6 +46,7 @@ import math
 
 import torch
 
+from ..utils.logging import count, span
 from .hopper_kernels import as_batch, whiten_fused, whiten_plain
 
 SUPER = 1024  # width of the hybrid factorisation's diagonal blocks
@@ -88,8 +91,11 @@ def _whiten_parts(R: torch.Tensor, B: torch.Tensor):
     takes the plain twin, chosen here by dtype (see the module docstring)."""
     if R.dtype == torch.float64:
         return whiten_plain(R, B)
-    if R.shape[-1] > SUPER:
-        L, Dinv, piv, W = _factor_hybrid(R, B, SUPER)
+    n = R.shape[-1]
+    if n > SUPER:
+        count("linalg.hybrid_panels", -(-n // SUPER))
+        with span("linalg.hybrid"):
+            L, Dinv, piv, W = _factor_hybrid(R, B, SUPER)
         return L.diagonal(dim1=-2, dim2=-1), W, piv, L, Dinv
     return whiten_fused(R, B)
 

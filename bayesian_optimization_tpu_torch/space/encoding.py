@@ -90,6 +90,8 @@ class SpaceEncoding:
     def quantize_unit(self, U: torch.Tensor) -> torch.Tensor:
         """Snap discrete columns to their level midpoints (k + 0.5) / n."""
         U = U.clamp(0.0, 1.0)
+        if self.is_real.all():  # nothing to snap: no level tables to copy
+            return U
         n = self._levels_t(U)
         lev = torch.minimum(torch.floor(U * n), n - 1.0)
         return torch.where(self._discrete_t(U), (lev + 0.5) / n, U)
@@ -102,7 +104,13 @@ class SpaceEncoding:
 
     def unit_to_embed(self, U: torch.Tensor) -> torch.Tensor:
         """Unit batch [..., dim] -> surrogate features [..., d_embed];
-        differentiable in the real columns."""
+        differentiable in the real columns. An all-real space's features
+        are its unit columns as they stand (U, contiguous): the values and
+        gradient of the column-by-column stack without its level tables'
+        copies to the device and its launches, forward and backward, which
+        every L-BFGS trip of the argmax would pay."""
+        if self.is_real.all():
+            return U.contiguous()
         levels = self.unit_levels(U)
         cols = [None] * self.d_embed
         for j, off in self._scalar_cols:

@@ -4,7 +4,7 @@ Capability parity with the reference's logger + @timeit
 (ref: bayes_optim/utils/logger.py:8-84, bayes_optim/utils/utils.py:235-246),
 re-designed: loggers are plain stdlib loggers (picklable by name), timing is
 collected into a metrics dict on the instance so it can be exported as
-structured data (and fed to torch.profiler record_function spans), instead of only
+structured data (and, under a profiler, opened as its ranges), instead of only
 being printed.
 
 Below the phases, `span(name)` times a block inside the running phase and
@@ -134,11 +134,16 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 
 
 def _open_range(name: str):
-    """An entered torch.profiler range named `name` while a profiler runs;
-    None otherwise (the range alone costs more than a small operator)."""
+    """An entered profiler range named `name` while a profiler runs; None
+    otherwise (the range alone costs more than a small operator). The range
+    is an operator's (function scope), not a user annotation: the profiler
+    links a kernel to the innermost operator that launched it, so a kernel
+    launched inside a span outside any aten operator (a hand-written
+    kernel's ctypes launch) belongs to the span, as an aten operator's
+    kernels belong to the operator."""
     if not _profiler_enabled():
         return None
-    rf = torch.profiler.record_function(name)
+    rf = torch._C._profiler._RecordFunctionFast(name)
     rf.__enter__()
     return rf
 

@@ -407,6 +407,51 @@ def test_matern_kernel_fit_shapes(dev, nu, shape):
     assert float((g_t.double() - w_t).abs().max() / w_t.abs().max()) < 1e-4
 
 
+# the cell f8d20-mle.seq's shapes: the warm refit's 2 lanes at bucket 4096
+# (1800 live rows, the rest padding) and an argmax trip's 100 lanes against
+# them, 20 features (the chunked paths past 8)
+D20_SHAPES = [(2, 4096, None), (1, 100, 4096)]
+
+
+@pytest.mark.parametrize("nu", NUS)
+@pytest.mark.parametrize("shape", D20_SHAPES, ids=str)
+def test_matern_kernel_d20_cell_shapes(dev, nu, shape):
+    """The forward against the twin (5e-6; the exact unit diagonal of the
+    training matrix) and the backward the path asks there (the fit's
+    dtheta of K(X, X), G masked as _masked_correlation masks it; the
+    argmax's dX) against the twin in float64 (1e-4 relative). theta as a
+    fit in 20 features leaves it (log10 in [-2, 0]: r^2 ~ 1, so K spans
+    its range)."""
+    B, N, M = shape
+    r = np.random.default_rng(20 + N)
+    theta = torch.tensor(10 ** r.uniform(-2, 0, (B, 20)), dtype=torch.float32, device=dev)
+    X = torch.tensor(r.uniform(0, 1, (N, 20)), dtype=torch.float32, device=dev)
+    same = M is None
+    Y = X if same else torch.tensor(r.uniform(0, 1, (M, 20)), dtype=torch.float32, device=dev)
+    K = matern_fused(theta if same else theta[0], X, None if same else Y, nu=nu)
+    torch.cuda.synchronize()
+    assert K.shape == ((B, N, N) if same else (N, M))
+    K_ref = matern_plain(theta if same else theta[0], X, None if same else Y, nu=nu)
+    assert float((K - K_ref).abs().max()) < 5e-6
+    if same:
+        assert float((K.diagonal(dim1=-2, dim2=-1) - 1.0).abs().max()) == 0.0
+        mask = (np.arange(N) < 1800).astype(float)
+        G = r.standard_normal((B, N, N)) * (np.outer(mask, mask) * (1.0 - np.eye(N)))
+    else:
+        G = r.standard_normal((B, N, M))
+    G = torch.tensor(G, dtype=torch.float32, device=dev)
+    need = (True, False, False) if same else (False, True, False)
+    code = _nu_code(nu)
+    got = matern_bwd_fused(theta, X, Y, G, code, same, same, need)
+    K64 = matern_plain(theta.double(), X.double(), Y.double(), nu=nu, sym=same)
+    want = matern_bwd_plain(theta.double(), X.double(), Y.double(), K64, G.double(), code, same,
+                            same, need)
+    torch.cuda.synchronize()
+    a, w = (got[0], want[0]) if same else (got[1], want[1])
+    assert bool(torch.isfinite(a).all())
+    assert float((a.double() - w).abs().max() / w.abs().max()) < 1e-4
+
+
 @pytest.mark.parametrize("nu", NUS)
 def test_matern_kernel_ensemble_query_shape(dev, nu):
     """The ensemble predict's cross matrices: 8 members' theta, 25 queries
@@ -558,6 +603,64 @@ def test_whiten_gradient_against_float64(dev, batch, n):
     W64 = torch.linalg.solve_triangular(L64, B.double(), upper=False)
     (torch.log(L64.diagonal(dim1=-2, dim2=-1)).sum() + (W64 ** 2).sum()).backward()
     assert bool((piv > 0).all())
+    assert float((Rt.grad.double() - R64.grad).abs().max() / R64.grad.abs().max()) < 1e-3
+
+
+def test_whiten_parts_at_the_cell_bucket(dev):
+    """The factorisation of the cell f8d20-mle.seq's warm refit: (2, 4096)
+    with 1800 live rows, the padding decoupled as _masked_correlation leaves
+    it, through `_whiten_parts` (the hybrid: 4 superpanels, the first
+    solving 3,072 columns of C^T beside B). L and W no farther from float64
+    than 4 times `whiten_plain`'s own float32 error (cuSOLVER on the card;
+    the Schur updates round once more a panel), the pivots within 1e-3 of
+    its, Dinv inverting L's 128-wide blocks; inside a phase one
+    `linalg.hybrid` span and 4 panels counted. The gradient through the
+    superpanel backward within 1e-3 of float64 autograd (as at (8, 1024)
+    above)."""
+    from bayesian_optimization_tpu_torch.ops.linalg import _whiten_parts, whiten
+    from bayesian_optimization_tpu_torch.utils import logging as tracing
+    from bayesian_optimization_tpu_torch.utils.logging import PhaseTimer
+
+    n, live = 4096, 1800
+    R = torch.eye(n).repeat(2, 1, 1)
+    R[:, :live, :live] = torch.tensor(_kernel_like(live, 2, seed=18))
+    R = R.to(dev)
+    B = torch.tensor(np.random.default_rng(18).standard_normal((2, n, 2)), dtype=torch.float32)
+    B[:, live:] = 0.0
+    B = B.to(dev)
+    timer = PhaseTimer()
+    token = tracing._PHASE.set((timer, "fit"))
+    try:
+        before = whiten_fused.launches
+        d, W, piv, L, Dinv = _whiten_parts(R, B)
+        torch.cuda.synchronize()
+    finally:
+        tracing._PHASE.reset(token)
+    snap = timer.snapshot()
+    assert whiten_fused.launches == before + 4
+    assert snap["fit/linalg.hybrid:n"] == 1 and snap["fit/linalg.hybrid_panels"] == 4
+    _, W0, piv0, L0, _ = whiten_plain(R, B)
+    L64 = torch.linalg.cholesky(R.double())
+    W64 = torch.linalg.solve_triangular(L64, B.double(), upper=False)
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+
+    assert rel(L, L64) <= 4.0 * rel(L0, L64) and rel(W, W64) <= 4.0 * rel(W0, W64)
+    assert bool((piv > 0).all()) and float(((piv - piv0) / piv0).abs().max()) < 1e-3
+    assert Dinv.shape == (2, n // 128, 128, 128)
+    eye = torch.eye(128, device=dev)
+    for k in range(n // 128):
+        blk = L[:, k * 128:(k + 1) * 128, k * 128:(k + 1) * 128]
+        assert float((Dinv[:, k] @ blk - eye).abs().max()) < 1e-3
+    assert float(torch.triu(L, 1).abs().max()) == 0.0
+    Rt = R.clone().requires_grad_(True)
+    d, W, _ = whiten(Rt, B)
+    (torch.log(d).sum() + (W ** 2).sum()).backward()
+    R64 = R.double().requires_grad_(True)
+    L64 = torch.linalg.cholesky(R64)
+    W64 = torch.linalg.solve_triangular(L64, B.double(), upper=False)
+    (torch.log(L64.diagonal(dim1=-2, dim2=-1)).sum() + (W64 ** 2).sum()).backward()
     assert float((Rt.grad.double() - R64.grad).abs().max() / R64.grad.abs().max()) < 1e-3
 
 
@@ -985,8 +1088,11 @@ def test_sharded_argmax_on_a_two_entry_mesh(dev, method):
 
 # (R, d, m) of the L-BFGS update kernel: the argmax's 25 lanes, the warm
 # refit's 2, the cold ladder's first rung, a q = 8 argmax's 200, and wide
-# or short-history lanes (d past one and two warps' width, m = 4)
-LBFGS_SHAPES = [(25, 5, 10), (2, 6, 10), (10, 6, 10), (200, 5, 10), (25, 40, 10), (3, 70, 4)]
+# or short-history lanes (d past one and two warps' width, m = 4); the cell
+# f8d20-mle.seq's argmax (100 lanes of 20) and warm refit (2 lanes of 21
+# hyperparameters: 20 thetas and the process variance)
+LBFGS_SHAPES = [(25, 5, 10), (2, 6, 10), (10, 6, 10), (200, 5, 10), (25, 40, 10), (3, 70, 4),
+                (100, 20, 10), (2, 21, 10)]
 LBFGS_DECISIONS = ("k", "n_probe", "n_accept", "done", "t")
 LBFGS_VALUES = ("z", "f", "g", "S", "Y", "rho", "gamma", "p", "gTp")
 

@@ -147,3 +147,31 @@ def test_unit_to_embed_np_matches_tensor():
     E_t = enc.unit_to_embed(torch.tensor(U, dtype=torch.float64)).numpy()
     assert E_np.shape == E_t.shape and np.allclose(E_np, E_t, atol=1e-6)
     assert np.array_equal(E_np, np.asarray(_space(bo_jax, "mixed").encoding().unit_to_embed_np(U)))
+
+
+@pytest.mark.parametrize("d", [3, 20])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_all_real_embed_is_the_column_stack_without_its_ops(d, transposed):
+    """An all-real space's `unit_to_embed` is U as it stands: the values and
+    the gradient of the column-by-column stack (the general path), through
+    no level table and no copy where U is contiguous; a strided U comes back
+    contiguous, as the hand-written Matern kernel takes it. `quantize_unit`
+    only clamps. Both equal the JAX package's on the same unit points."""
+    enc = bo_torch.RealSpace([[-5, 5]] * d, var_name="x").encoding()
+    U0 = torch.rand(7, d, generator=torch.Generator().manual_seed(d))
+    base = U0.T.contiguous().T if transposed else U0.clone()
+    U = base.requires_grad_(True)
+    enc._levels_t = enc._discrete_t = None  # the level tables must not be read
+    E = enc.unit_to_embed(U)
+    assert E.is_contiguous() and E.shape == (7, d)
+    assert (E.data_ptr() == U.data_ptr()) is not transposed
+    stack = torch.stack([U[..., j] for j in range(d)], dim=-1)
+    assert torch.equal(E, stack)
+    w = torch.linspace(-1.0, 2.0, 7 * d).reshape(7, d)
+    (g_fast,) = torch.autograd.grad((torch.sin(E) * w).sum(), U)
+    (g_stack,) = torch.autograd.grad((torch.sin(stack) * w).sum(), U)
+    assert torch.equal(g_fast, g_stack)
+    outside = U0 * 3.0 - 1.0
+    assert torch.equal(enc.quantize_unit(outside), outside.clamp(0.0, 1.0))
+    enc_j = bo_jax.RealSpace([[-5, 5]] * d, var_name="x").encoding()
+    assert np.array_equal(E.detach().numpy(), np.asarray(enc_j.unit_to_embed(jnp.asarray(U0.numpy()))))

@@ -181,6 +181,7 @@ def test_no_profiler_range_opens_without_a_profiler(monkeypatch):
 
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
     opt = _told()
     opt.ask()
     assert opt._timer.snapshot()["fit/lbfgs.trips"] > 0
