@@ -11,8 +11,9 @@ optimizer="HMC" | "NUTS" | "VI": a posterior over the hyperparameters
 (models/hmc.py), its chains or Monte-Carlo draws lanes of one batched
 likelihood and gradient; the fit keeps `n_ensemble` samples as one stacked
 posterior state, and predict mixes them. Observations are padded to the
-same size buckets as the JAX package. Restart starts, the samplers' seeds
-and the data subsets come from numpy's `default_rng(random_state)`, drawn in
+next 128-multiple of rows (`_fit_rows`); the JAX package's x4 size buckets
+only set the fit's schedule here. Restart starts, the samplers' seeds and
+the data subsets come from numpy's `default_rng(random_state)`, drawn in
 the same order as the JAX package, so both packages start from identical
 points.
 
@@ -39,7 +40,7 @@ import torch
 from .._device import DEFAULT_DEVICE, resolve_device
 from ..ops.optimize import minimize_restarts
 from ..optim.cma import run_cma
-from ..utils.logging import host_sync
+from ..utils.logging import count, host_sync
 from .hmc import Draws, _to_box, fit_vi, hmc_sample, nuts_sample
 from .likelihood import (
     PIV_TOL,
@@ -80,6 +81,16 @@ def _bucket(n: int) -> int:
     while b < n:
         b *= 4
     return b
+
+
+def _fit_rows(n: int) -> int:
+    """Rows of a fit's data layout: n up to the next 128-multiple, or to its
+    size bucket where that is smaller (n <= 64). The padded rows carry no
+    information (masked, decoupled), so the fit lays out no more of them
+    than the hand kernels' 128-row tiles need; the schedule (the ladder
+    plan, the subsets, the probe's condition, the sampler's carry) still
+    follows the bucket, as in the JAX package."""
+    return min(_bucket(n), 128 * -(-n // 128))
 
 
 def _fit_summary(par, nll, state: PosteriorState):
@@ -449,11 +460,14 @@ class GaussianProcess:
 
         config = self._config(dim)
         n_pad = _bucket(n)
-        Xp = np.zeros((n_pad, dim))
+        n_rows = _fit_rows(n)
+        count("gp.rows", n_rows)
+        count("gp.bucket_rows", n_pad)
+        Xp = np.zeros((n_rows, dim))
         Xp[:n] = X
-        Yp = np.zeros((n_pad, m))
+        Yp = np.zeros((n_rows, m))
         Yp[:n] = y
-        mask = np.zeros(n_pad)
+        mask = np.zeros(n_rows)
         mask[:n] = 1.0
         Xj, Yj, maskj = self._tensor(Xp), self._tensor(Yp), self._tensor(mask)
         Fj = self._trend_F(Xj) * maskj[:, None]

@@ -607,21 +607,31 @@ def test_whiten_gradient_against_float64(dev, batch, n):
 
 
 def test_whiten_parts_at_the_cell_bucket(dev):
-    """The factorisation of the cell f8d20-mle.seq's warm refit: (2, 4096)
-    with 1800 live rows, the padding decoupled as _masked_correlation leaves
-    it, through `_whiten_parts` (the hybrid: 4 superpanels, the first
-    solving 3,072 columns of C^T beside B). L and W no farther from float64
-    than 4 times `whiten_plain`'s own float32 error (cuSOLVER on the card;
-    the Schur updates round once more a panel), the pivots within 1e-3 of
-    its, Dinv inverting L's 128-wide blocks; inside a phase one
-    `linalg.hybrid` span and 4 panels counted. The gradient through the
-    superpanel backward within 1e-3 of float64 autograd (as at (8, 1024)
-    above)."""
-    from bayesian_optimization_tpu_torch.ops.linalg import _whiten_parts, whiten
+    """The factorisation of the cell f8d20-mle.seq's warm refit as the size
+    bucket laid it out: (2, 4096) with 1800 live rows, the padding
+    decoupled as _masked_correlation leaves it, through `_whiten_parts` (the
+    hybrid: 4 superpanels, the first solving 3,072 columns of C^T beside
+    B). L and W no farther from float64 than 4 times `whiten_plain`'s own
+    float32 error (cuSOLVER on the card; the Schur updates round once more
+    a panel), the pivots within 1e-3 of its, Dinv inverting L's 128-wide
+    blocks; inside a phase one `linalg.hybrid` span and 4 panels counted.
+    The gradient through the superpanel backward within 1e-3 of float64
+    autograd (as at (8, 1024) above)."""
+    _check_whiten_parts_with_padding(dev, 4096, 1800)
+
+
+def test_whiten_parts_at_the_cell_layout(dev):
+    """The same at the fit's layout, the next 128-multiple: (2, 1920) with
+    1800 live rows, 2 superpanels (1024 + 896), the same limits."""
+    _check_whiten_parts_with_padding(dev, 1920, 1800)
+
+
+def _check_whiten_parts_with_padding(dev, n, live):
+    from bayesian_optimization_tpu_torch.ops.linalg import SUPER, _whiten_parts, whiten
     from bayesian_optimization_tpu_torch.utils import logging as tracing
     from bayesian_optimization_tpu_torch.utils.logging import PhaseTimer
 
-    n, live = 4096, 1800
+    panels = -(-n // SUPER)
     R = torch.eye(n).repeat(2, 1, 1)
     R[:, :live, :live] = torch.tensor(_kernel_like(live, 2, seed=18))
     R = R.to(dev)
@@ -637,8 +647,8 @@ def test_whiten_parts_at_the_cell_bucket(dev):
     finally:
         tracing._PHASE.reset(token)
     snap = timer.snapshot()
-    assert whiten_fused.launches == before + 4
-    assert snap["fit/linalg.hybrid:n"] == 1 and snap["fit/linalg.hybrid_panels"] == 4
+    assert whiten_fused.launches == before + panels
+    assert snap["fit/linalg.hybrid:n"] == 1 and snap["fit/linalg.hybrid_panels"] == panels
     _, W0, piv0, L0, _ = whiten_plain(R, B)
     L64 = torch.linalg.cholesky(R.double())
     W64 = torch.linalg.solve_triangular(L64, B.double(), upper=False)
@@ -662,6 +672,47 @@ def test_whiten_parts_at_the_cell_bucket(dev):
     W64 = torch.linalg.solve_triangular(L64, B.double(), upper=False)
     (torch.log(L64.diagonal(dim1=-2, dim2=-1)).sum() + (W64 ** 2).sum()).backward()
     assert float((Rt.grad.double() - R64.grad).abs().max() / R64.grad.abs().max()) < 1e-3
+
+
+def test_d20_fit_at_the_layout_keeps_the_bucket_likelihood(dev, monkeypatch):
+    """A 20-D fit at n = 1800 (the cell f8d20-mle.seq's size) lays its data
+    out at 1920 rows: every factorisation of the fit is a hybrid at 1920,
+    the posterior has 1920 rows, and the fit's log likelihood equals, within
+    the cell's `ll_gap` limit (2e-6 a row), the likelihood at the same
+    hyperparameters on the bucket's 4096 rows on the card and in float64."""
+    from bayesian_optimization_tpu_torch.models import GaussianProcess, constant_trend
+    from bayesian_optimization_tpu_torch.models.likelihood import neg_log_likelihood
+    from bayesian_optimization_tpu_torch.ops import linalg
+    from bench_port.bbob import BBOBFunction
+
+    D, n = 20, 1800
+    rng = np.random.default_rng(1800)
+    U = rng.uniform(0, 1, (n, D))
+    y = BBOBFunction(8, D, 7)(-5.0 + 10.0 * U)
+    y = ((y - y.mean()) / y.std()).reshape(-1, 1)
+    shapes = []
+    real = linalg._factor_hybrid
+    monkeypatch.setattr(linalg, "_factor_hybrid", lambda *a: shapes.append(a[0].shape) or real(*a))
+    gp = GaussianProcess(mean=constant_trend(D), corr="matern", thetaL=1e-2 * np.ones(D),
+                         thetaU=1e4 * np.ones(D), nugget=1e-6, random_start=4, max_iter=8,
+                         random_state=0, device=dev)
+    gp.fit(U, y)
+    assert shapes and all(s[-1] == 1920 for s in shapes)
+    assert gp.posterior.X.shape[0] == 1920
+
+    def ll_at(rows, dtype, device):
+        Xp, Yp, mask = np.zeros((rows, D)), np.zeros((rows, 1)), np.zeros(rows)
+        Xp[:n], Yp[:n], mask[:n] = U, y, 1.0
+        X_, Y_, m_ = (torch.tensor(a, dtype=dtype, device=device) for a in (Xp, Yp, mask))
+        par = torch.tensor(gp._map_par_log10, dtype=dtype, device=device)
+        with torch.no_grad():
+            nll = neg_log_likelihood(par, X_, Y_, m_[:, None], m_, float(n), gp.noise_var,
+                                     torch.zeros(1, 1, dtype=dtype, device=device), gp.config)
+        return -float(nll)
+
+    ll_bucket, ll64 = ll_at(4096, torch.float32, dev), ll_at(1920, torch.float64, "cpu")
+    assert abs(gp.log_likelihood_ - ll_bucket) / n < 2e-6
+    assert abs(gp.log_likelihood_ - ll64) / n < 2e-6 and abs(ll_bucket - ll64) / n < 2e-6
 
 
 @pytest.mark.parametrize("log10_theta", [-0.5, -1.0, -1.5])
