@@ -600,19 +600,6 @@ class GaussianProcess:
         self.is_fitted = True
         return self
 
-    def _predict_padded(self, X: np.ndarray, eval_mse: bool):
-        nq = X.shape[0]
-        Xq = np.zeros((_bucket(nq), self._dim))
-        Xq[:nq] = X
-        Xj = self._tensor(Xq)
-        with torch.no_grad():
-            mu, mse = predict_gp(self._state, Xj, self._trend_F(Xj), self._config_cache, eval_mse)
-        mu = mu[:nq]
-        prior = self._prior_mean(X)  # the residual GP: add the prior mean back
-        if prior is not None:
-            mu = mu + torch.as_tensor(prior, dtype=mu.dtype, device=mu.device)
-        return mu, (mse[:nq] if mse is not None else None)
-
     def predict(self, X, eval_MSE: bool = False):
         """BLUP mean (and MSE) at X: (n_eval, n_targets), squeezed to
         (n_eval,) for single-target models."""
@@ -621,7 +608,12 @@ class GaussianProcess:
         X = np.asarray(X, dtype=float)
         if X.ndim == 1:
             X = X.reshape(1, -1)
-        mu, mse = self._predict_padded(X, eval_MSE)
+        Xj = self._tensor(X)
+        with torch.no_grad():
+            mu, mse = predict_gp(self._state, Xj, self._trend_F(Xj), self._config_cache, eval_MSE)
+        prior = self._prior_mean(X)  # the residual GP: add the prior mean back
+        if prior is not None:
+            mu = mu + torch.as_tensor(prior, dtype=mu.dtype, device=mu.device)
         with host_sync(1 + eval_MSE):
             mu = mu.cpu()
             mse = mse.cpu() if eval_MSE else None

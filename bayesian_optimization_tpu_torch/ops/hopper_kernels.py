@@ -13,8 +13,9 @@ has three parts here:
 - a plain PyTorch twin (`matern_plain`, `matern_bwd_plain`,
   `matern_bwd2_plain`, `whiten_plain`) of the same function, which defines
   the semantics. The CPU tests hold it
-  against the JAX package, and `chip_smoke.py` holds the kernel against it
-  on the card. `matern_twin` runs the Matern twins with their autograd on
+  against the JAX package, and the card tests
+  (tests/test_torch_cuda_kernels.py) hold the kernel against it on the
+  card. `matern_twin` runs the Matern twins with their autograd on
   any device (the float64 route of models/kernels.py);
 - a launch counter, an int attribute on the wrapper (`matern_fused.launches`,
   `whiten_fused.launches`), raised by one where the kernel is launched and
@@ -26,9 +27,8 @@ has three parts here:
 (csrc/lbfgs.cu) and nothing else: the optimizer's state, its twin
 `lbfgs_update_plain` and the choice between them are ops/optimize.py's, as
 the float64 route of the Matern covariance is models/kernels.py's. It
-raises on any input but a CUDA float32 state; `chip_smoke.py` and the
-card's tests hold it against the twin, and `lbfgs_update_fused.launches`
-counts it.
+raises on any input but a CUDA float32 state; the card tests hold it
+against the twin, and `lbfgs_update_fused.launches` counts it.
 
 The backward and the second derivative sum their blocks' partials in the
 same launch: the last block to arrive adds them up, found through an

@@ -11,8 +11,7 @@ factorisation of float32 on the card goes through the hand kernel
 - n > 1024: `_factor_hybrid`, Schur updates as torch.matmul and one
   `whiten_fused` call per 1024-wide diagonal block, which also solves that
   block's subdiagonal panel and right-hand side in the same launch sequence.
-  Inside a timed phase it is the span "linalg.hybrid", and the counter
-  "linalg.hybrid_panels" adds its superpanels (utils/logging.py).
+  Inside a timed phase it is the span "linalg.hybrid" (utils/logging.py).
 
 The backward of `whiten` solves with L^T in the JAX package's superpanel
 form (`_super_inv`, `tri_solve_upper_t_super`): the explicit inverses of
@@ -46,7 +45,7 @@ import math
 
 import torch
 
-from ..utils.logging import count, span
+from ..utils.logging import span
 from .hopper_kernels import as_batch, whiten_fused, whiten_plain
 
 SUPER = 1024  # width of the hybrid factorisation's diagonal blocks
@@ -93,7 +92,6 @@ def _whiten_parts(R: torch.Tensor, B: torch.Tensor):
         return whiten_plain(R, B)
     n = R.shape[-1]
     if n > SUPER:
-        count("linalg.hybrid_panels", -(-n // SUPER))
         with span("linalg.hybrid"):
             L, Dinv, piv, W = _factor_hybrid(R, B, SUPER)
         return L.diagonal(dim1=-2, dim2=-1), W, piv, L, Dinv

@@ -1,10 +1,6 @@
-"""The backward of `whiten` (ops/linalg.py), three ways: time, accuracy and
-the fits it steers.
+"""The backward of `whiten` (ops/linalg.py), three ways: time and accuracy.
 
     python bayesian_optimization_tpu_torch/tools/whiten_bwd_variants.py [--reps N]
-    python bayesian_optimization_tpu_torch/tools/whiten_bwd_variants.py --fits
-    python bayesian_optimization_tpu_torch/tools/whiten_bwd_variants.py --basins \
-        [--device cuda|cpu] [--dtype f32|f64] [--data mixed,n4000]
 
 The VJP (`whiten_vjp`) needs three solves with L^T a call. Each variant
 gives it another solver:
@@ -16,34 +12,22 @@ gives it another solver:
   diagonal blocks from Dinv (`_super_inv`, all of L^-1 up to 1024 rows),
   then one GEMM pair a superpanel a solve ("superpanel" above 1024 rows).
 
-Default: at the samplers' (8, 1024), the warm refit's (2, 1024), the CMA
-fit's (10, 1024) and the hybrid (1, 4096) (superpanel form against trsm
-only), ms a call by CUDA events (median of 7 windows), device ms from the
+At the samplers' (8, 1024), the warm refit's (2, 1024), the CMA fit's
+(10, 1024) and the hybrid (1, 4096) (superpanel form against trsm only),
+ms a call by CUDA events (median of 7 windows), device ms from the
 profiler by kernel name, and the error of Rbar against the VJP in float64
 (relative to its largest entry); then, at (2, 1024) matrices of cond(R)
 4e6 to 1.5e8 (Matern-3/2, theta 10^-0.5 to 10^-1.5, nugget 1e-6, as the
 fits reach with theta at its bounds), each variant's gradient against
 float64 autograd and against the float64 VJP of the same float32 factor
-(the solver's own error). --fits: a BFGS warm refit and a NUTS carried
-refit at n=1000, d=5 (chip_smoke.py's data) with the substitution and the
-inverse in turns (s, i, i, s, s, i), wall per L-BFGS trip or leapfrog
-(counted by the Matern backward's launches). --basins: chip_smoke.py's
-phase-8 mixed fit (n=1000, D=6) and phase-5 fit (n=4000), cold, under each
-solver and both forms of the constant trend's GLS (the closed form the
-likelihood runs, and the QR with its triangular solve it replaced), on
---device in --dtype (f64: the CPU, the kept form only): the
-log-likelihood, the theta and how many theta sit at a bound. The swaps
-hold only inside each run (`unittest.mock.patch.object`). Last, the card's
-name and power limit where a card ran. Default and --fits need a GPU.
+(the solver's own error). Last, the card's name and power limit. Needs a
+GPU; the card tests import `SOLVERS` and `ill_conditioned` from here.
 """
 import argparse
-import contextlib
 import statistics
 import subprocess
 import sys
-import time
 from pathlib import Path
-from unittest import mock
 
 import numpy as np
 import torch
@@ -52,7 +36,6 @@ from torch.autograd import DeviceType
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the checkout's root
 
 from bayesian_optimization_tpu_torch import require_cuda  # noqa: E402
-from bayesian_optimization_tpu_torch.models import likelihood  # noqa: E402
 from bayesian_optimization_tpu_torch.ops import linalg  # noqa: E402
 from bayesian_optimization_tpu_torch.ops.hopper_kernels import matern_plain  # noqa: E402
 
@@ -139,32 +122,6 @@ def inverse_solver(L, Dinv):
 SOLVERS = {"trsm": trsm_solver, "substitution": substitution_solver, "inverse": inverse_solver}
 
 
-@contextlib.contextmanager
-def backward_solver(name: str):
-    """whiten's backward with the named solver, inside the block only."""
-    make = SOLVERS[name]
-
-    def backward(ctx, dbar, Wbar, _pivbar):
-        L, W, Dinv = ctx.saved_tensors
-        return linalg.whiten_vjp(L, W, make(L, Dinv), dbar, Wbar)
-
-    with mock.patch.object(linalg._Whiten, "backward", staticmethod(backward)):
-        yield
-
-
-def _gls_qr(Yt, Ft, beta0, estimate_trend: bool):
-    """The constant trend's GLS as it was before its closed form: a QR of
-    L^-1 F and a triangular solve for beta, for every p."""
-    if not estimate_trend:
-        return _gls_kept(Yt, Ft, beta0, estimate_trend)
-    Q, G = torch.linalg.qr(Ft, mode="reduced")
-    beta = torch.linalg.solve_triangular(G, Q.mT @ Yt, upper=True)
-    return G, beta, Yt - Ft @ beta
-
-
-_gls_kept = likelihood._gls
-
-
 def variants(L, W, Dinv, dbar, Wbar) -> dict:
     """name -> a call of the VJP whose solver is built inside the call, as
     the backward builds it."""
@@ -226,96 +183,15 @@ def timings(reps: int) -> None:
                   f"[{top}]; rel err of Rbar against float64 {err:.3e}", flush=True)
 
 
-def fits() -> None:
-    """End-to-end fits with the backward's solver swapped in turns."""
-    from bayesian_optimization_tpu_torch import GaussianProcess, constant_trend
-    from bayesian_optimization_tpu_torch.ops.hopper_kernels import matern_fused
-    from chip_smoke import bench_data
-
-    X, y = bench_data(1000)
-
-    def gp(optimizer):
-        g = GaussianProcess(mean=constant_trend(5), corr="matern", thetaL=1e-3 * np.ones(5),
-                            thetaU=1e3 * np.ones(5), nugget=1e-6, random_start=10, random_state=0,
-                            optimizer=optimizer)
-        g.hmc_warmup, g.n_ensemble = 64, 8
-        return g.fit(X, y)  # cold fit, the kept solver
-
-    for optimizer, unit in (("BFGS", "trip"), ("NUTS", "leapfrog")):
-        g = gp(optimizer)
-        out = {"substitution": [], "inverse": []}
-        for name in ("substitution", "inverse", "inverse", "substitution", "substitution", "inverse"):
-            with backward_solver(name):
-                torch.cuda.synchronize()
-                b0, t0 = matern_fused.bwd_launches, time.perf_counter()
-                g.fit(X, y)
-                torch.cuda.synchronize()
-                wall, work = time.perf_counter() - t0, matern_fused.bwd_launches - b0
-            out[name].append((wall, work))
-        for name, runs in out.items():
-            print(f"{optimizer} refit, n=1000, {name}: " + ", ".join(
-                f"{w:.4f} s / {k} {unit}s = {w / k * 1e3:.2f} ms" for w, k in runs), flush=True)
-
-
-def basins(device: str, dtype: str, which: list) -> None:
-    """chip_smoke.py's phase-8 and phase-5 fits under each solver and trend
-    form: where each cold fit ends."""
-    from bayesian_optimization_tpu_torch import GaussianProcess, constant_trend
-    from chip_smoke import MIXED_D, bench_data, mixed_obj, mixed_space
-
-    data = {}
-    if "mixed" in which:
-        space = mixed_space()
-        enc = space.encoding()
-        raw = space.sample(1000, method="LHS")
-        y = np.array([mixed_obj(list(r)) for r in raw])
-        data["mixed fit (phase 8), n=1000, D=6"] = (enc.unit_to_embed_np(enc.encode_unit(raw)),
-                                                   (y - y.mean()) / y.std(), MIXED_D)
-    if "n4000" in which:
-        data["bench fit (phase 5), n=4000, D=5"] = (*bench_data(4000), 5)
-    turns = ([("closed", "inverse")] if dtype == "f64" else
-             [(t, s) for t in ("closed", "qr") for s in SOLVERS])
-    for label, (X, y, dim) in data.items():
-        for trend, solver in turns:
-            gp = GaussianProcess(mean=constant_trend(dim), corr="matern", thetaL=1e-3 * np.ones(dim),
-                                 thetaU=1e3 * np.ones(dim), nugget=1e-6, random_start=10, random_state=0,
-                                 device=device, dtype=dtype)
-            with backward_solver(solver), mock.patch.object(
-                    likelihood, "_gls", _gls_kept if trend == "closed" else _gls_qr):
-                t0 = time.perf_counter()
-                gp.fit(X, y)
-                wall = time.perf_counter() - t0
-            at_bound = int(np.sum(np.abs(np.abs(np.log10(gp.theta_)) - 3.0) < 0.01))  # within 2.3%
-            print(f"{label}, {device} {dtype}, {trend} trend, {solver} backward: log-likelihood "
-                  f"{gp.log_likelihood_:.4f}, theta {np.round(gp.theta_, 4).tolist()} ({at_bound} of {dim} "
-                  f"at a bound), {wall:.2f} s", flush=True)
-
-
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=7)
-    ap.add_argument("--fits", action="store_true")
-    ap.add_argument("--basins", action="store_true")
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--dtype", default="f32", choices=("f32", "f64"))
-    ap.add_argument("--data", default="mixed,n4000")
     args = ap.parse_args()
-    if args.basins:
-        device = "cpu" if args.dtype == "f64" else args.device
-        if device != "cpu":
-            require_cuda()
-        basins(device, args.dtype, args.data.split(","))
-    else:
-        require_cuda()
-        if args.fits:
-            fits()
-        else:
-            timings(args.reps)
-            accuracy("cuda")
-    if torch.cuda.is_available():
-        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
-
+    require_cuda()
+    timings(args.reps)
+    accuracy("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
 
 if __name__ == "__main__":
     main()

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain twins, on the card.
+"""The port's CUDA kernels against their plain twins, and the paths that
+call them against the CPU path (the twins), on the card.
 
 Every test here needs an NVIDIA GPU and skips without one. They import no
 JAX, so they run on a machine that has only PyTorch:
@@ -57,10 +58,13 @@ def test_matern_kernel_matches_twin(dev, nu, shape):
 
 
 @pytest.mark.parametrize("nu", NUS)
-@pytest.mark.parametrize("shape", [(2, 1024, None), (1, 25, 1024)])
+@pytest.mark.parametrize("shape", [(2, 1024, None), (1, 25, 1024), (1, 1024, None), (2, 512, None),
+                                   (1, 25, 512)])
 def test_matern_kernel_main_path_shapes(dev, nu, shape):
     """The fit's training matrix (2 lanes at n = 1024) and the argmax's cross
-    matrix (25 queries, one theta vector) against the twin."""
+    matrix (25 queries, one theta vector) against the twin; the posterior
+    state's one theta at 1024 rows; the cell f8d5-mle.seq's refit at its
+    512-row layout and its argmax trip against it."""
     rng = np.random.default_rng(2)
     B, N, M = shape
     X = torch.tensor(rng.uniform(0, 1, (N, 5)), dtype=torch.float32, device=dev)
@@ -286,11 +290,15 @@ def _check_whiten(R, B):
     assert float(torch.triu(L, 1).abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("mb", [3, 2])
 @pytest.mark.parametrize("batch", [1, 2, 10])
-@pytest.mark.parametrize("n", [1, 16, 37, 64, 100, 128, 384, 1024])
-def test_whiten_kernel_matches_twin(dev, n, batch):
+@pytest.mark.parametrize("n", [1, 16, 37, 64, 100, 128, 256, 384, 512, 1024])
+def test_whiten_kernel_matches_twin(dev, n, batch, mb):
+    """Ragged blocks (n <= 128 is one block of width n), the MLE ladder's
+    lanes at each bucket and rung size, with y and the trend (2 right-hand
+    sides) or 3."""
     R = torch.tensor(_kernel_like(n, batch, seed=n), device=dev)
-    B = torch.tensor(np.random.default_rng(n).standard_normal((batch, n, 3)), dtype=torch.float32, device=dev)
+    B = torch.tensor(np.random.default_rng(n).standard_normal((batch, n, mb)), dtype=torch.float32, device=dev)
     _check_whiten(R, B)
 
 
@@ -345,9 +353,13 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 
 # (N queries, M training rows, D): the batch and engine paths' cross
 # matrices -- 8 criteria x 25 restarts of the batched L-BFGS, a CMA/SMC
-# generation of 32 chains, a MIES generation on parity config 4's mixed
-# space (6 embedded features)
-ENGINE_SHAPES = [(200, 1024, 5), (32, 1024, 5), (60, 1024, 6)]
+# generation of 32 chains, MIES generations of 6 and 5 restarts on parity
+# config 4's mixed space (6 embedded features), parity config 6's argmax
+# trip (10 lanes, 2 features, bucket 16) and config 5's (25 lanes, bucket
+# 64), a qEHVI CMA generation (80 chains x q = 4), and argmax trips at 7 and
+# 8 features, where ptxas reports spills
+ENGINE_SHAPES = [(200, 1024, 5), (32, 1024, 5), (60, 1024, 6), (50, 1024, 6), (10, 16, 2), (25, 64, 5),
+                 (320, 1024, 5), (25, 1024, 7), (25, 1024, 8)]
 
 
 @pytest.mark.parametrize("nu", NUS)
@@ -376,9 +388,13 @@ def test_matern_kernel_engine_shapes(dev, nu, shape):
 # configs' small buckets (10 starts at 16 and 64 rows, D = 5 and the mixed
 # space's D = 6), the mixed space's ladder at n = 1000 (its own compile-time
 # D = 6 variant of the symmetric kernel), 10 lanes at 1024 rows, D = 6, and
-# the samplers' 8 chains on the n/4 warm-up subset and on all 1024 rows
+# the samplers' 8 chains on the n/4 warm-up subset and on all 1024 rows;
+# the cold ladder's first two rungs at D = 5, the mixed posterior state,
+# parity config 6's fit (2 features, bucket 16), and fits at 7 and 8
+# features, where ptxas reports spills
 FIT_SHAPES = [(10, 16, 5), (10, 64, 5), (10, 16, 6), (10, 64, 6), (10, 256, 6), (6, 512, 6),
-              (2, 1024, 6), (10, 1024, 6), (8, 256, 5), (8, 1024, 5)]
+              (2, 1024, 6), (10, 1024, 6), (8, 256, 5), (8, 1024, 5), (10, 256, 5), (6, 512, 5),
+              (1, 1024, 6), (10, 16, 2), (2, 1024, 7), (2, 1024, 8)]
 
 
 @pytest.mark.parametrize("nu", NUS)
@@ -408,9 +424,10 @@ def test_matern_kernel_fit_shapes(dev, nu, shape):
 
 
 # the cell f8d20-mle.seq's shapes: the warm refit's 2 lanes at bucket 4096
-# (1800 live rows, the rest padding) and an argmax trip's 100 lanes against
-# them, 20 features (the chunked paths past 8)
-D20_SHAPES = [(2, 4096, None), (1, 100, 4096)]
+# and at the fit's layout, 1920 rows (1800 live rows, the rest padding),
+# and an argmax trip's 100 lanes against them, 20 features (the chunked
+# paths past 8)
+D20_SHAPES = [(2, 4096, None), (1, 100, 4096), (2, 1920, None), (1, 100, 1920)]
 
 
 @pytest.mark.parametrize("nu", NUS)
@@ -614,7 +631,7 @@ def test_whiten_parts_at_the_cell_bucket(dev):
     B). L and W no farther from float64 than 4 times `whiten_plain`'s own
     float32 error (cuSOLVER on the card; the Schur updates round once more
     a panel), the pivots within 1e-3 of its, Dinv inverting L's 128-wide
-    blocks; inside a phase one `linalg.hybrid` span and 4 panels counted.
+    blocks; inside a phase one `linalg.hybrid` span and 4 launches.
     The gradient through the superpanel backward within 1e-3 of float64
     autograd (as at (8, 1024) above)."""
     _check_whiten_parts_with_padding(dev, 4096, 1800)
@@ -648,7 +665,7 @@ def _check_whiten_parts_with_padding(dev, n, live):
         tracing._PHASE.reset(token)
     snap = timer.snapshot()
     assert whiten_fused.launches == before + panels
-    assert snap["fit/linalg.hybrid:n"] == 1 and snap["fit/linalg.hybrid_panels"] == panels
+    assert snap["fit/linalg.hybrid:n"] == 1
     _, W0, piv0, L0, _ = whiten_plain(R, B)
     L64 = torch.linalg.cholesky(R.double())
     W64 = torch.linalg.solve_triangular(L64, B.double(), upper=False)
@@ -793,7 +810,8 @@ def test_constrained_argmax_on_the_card(dev, method):
 
 def test_pcabo_runs_on_the_card(dev):
     """PCABO on the card (8-D ellipsoid, 3 components, 16 evaluations):
-    every kernel launches, every point lies in the box."""
+    every kernel launches, every point lies in the box, and the result is
+    below the DoE's best."""
     from bayesian_optimization_tpu_torch import PCABO, RealSpace
     from bayesian_optimization_tpu_torch.ops.hopper_kernels import reset_launch_counts
 
@@ -808,6 +826,7 @@ def test_pcabo_runs_on_the_card(dev):
     assert matern_fused.launches > 0 and matern_fused.bwd_launches > 0 and whiten_fused.launches > 0
     V = np.asarray(opt.data.values, dtype=float)
     assert opt.eval_count == 16 and V.min() >= -5 - 1e-6 and V.max() <= 5 + 1e-6
+    assert opt.fopt < float(np.min(opt.data.fitness[:8]))
 
 
 def _f64_problem(n=300, d=3, seed=0):
@@ -999,7 +1018,7 @@ def test_gradient_and_hessian_on_the_card(dev):
 
 
 @pytest.mark.parametrize("mb", [3, 4])
-@pytest.mark.parametrize("batch, n", [(10, 256), (6, 512), (2, 1024), (1, 1024)])
+@pytest.mark.parametrize("batch, n", [(10, 256), (6, 512), (2, 1024), (1, 1024), (10, 512)])
 def test_whiten_kernel_multi_output_rhs(dev, batch, n, mb):
     """A multi-output fit's right-hand sides: m objectives and the constant
     trend, mb = m + 1 = 3 and 4 (rows [n, n + mb) of the workspace)."""
@@ -1280,3 +1299,915 @@ def test_lbfgs_update_float64_on_the_card_runs_the_twin(dev):
     assert hk.lbfgs_update_fused.launches == launches
     with pytest.raises(NotImplementedError):
         _update(lbfgs_state(st.z.half(), 10), idx, f_a, g_a, z_trial.half(), 20)
+
+
+# ---------------------------------------------------------------------------
+# The port's paths on the card, each against the CPU path (the plain twins)
+# or checked for what it must produce. d = 5 on [0, 1]^5 with y = sum
+# sin(3 x) + noise, standardized, as the GP paths' data.
+
+def _sin_data(n, d=5, seed=1):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(0, 1, (n, d))
+    y = np.sin(3 * X).sum(1) + 0.1 * rng.standard_normal(n)
+    return X, (y - y.mean()) / y.std()
+
+
+def _gp(dev, d=5, **kw):
+    from bayesian_optimization_tpu_torch import GaussianProcess
+    from bayesian_optimization_tpu_torch.models.trend import constant_trend
+
+    kw = {"mean": constant_trend(d), "corr": "matern", "thetaL": 1e-3 * np.ones(d),
+          "thetaU": 1e3 * np.ones(d), "nugget": 1e-6, "random_start": 10, "random_state": 0, **kw}
+    return GaussianProcess(device=dev, **kw)
+
+
+def _counts():
+    from bayesian_optimization_tpu_torch.ops.hopper_kernels import lbfgs_update_fused
+
+    return {"matern_fused": matern_fused.launches, "matern_fused_bwd": matern_fused.bwd_launches,
+            "whiten_fused": whiten_fused.launches, "lbfgs_update_fused": lbfgs_update_fused.launches}
+
+
+def _launched(c0, names=("matern_fused", "matern_fused_bwd", "whiten_fused")):
+    """Whether every named kernel launched since the counts c0."""
+    c1 = _counts()
+    return all(c1[k] > c0[k] for k in names)
+
+
+def _cpu_criterion(state, config, enc, acq, params, U, dtype=torch.float32, prior=None):
+    """The CPU path's criterion at unit points U from a model state carried
+    to the CPU in dtype (a forest's thresholds as grown), with a
+    NonparametricTrend's forest `prior` carried too."""
+    from bayesian_optimization_tpu_torch.models.random_forest import RFState
+    from bayesian_optimization_tpu_torch.optim.argmax import make_unit_criterion
+
+    def carry(st):
+        moved = type(st)(*(t.cpu() for t in st))
+        if isinstance(moved, RFState):
+            return moved._replace(value=moved.value.to(dtype))
+        return type(moved)(*(t.to(dtype) for t in moved))
+
+    params = {k: torch.tensor(np.asarray(v), dtype=dtype) for k, v in params.items()}
+    if prior is not None:
+        params.update(_prior_state=carry(prior.posterior), _prior_depth=prior.config.max_depth)
+    crit = make_unit_criterion(type(enc)(enc.space, dtype=dtype), carry(state), config, acq, params)
+    with torch.no_grad():
+        return crit(torch.tensor(np.atleast_2d(U), dtype=dtype)).double().numpy()
+
+
+def _likelihood_vs_cpu(dev, X, y, n_pad, pars, noise_var=1e-6, f64=False, kernel="matern"):
+    """The concentrated likelihood and its gradient for a batch of lanes at
+    fixed log10 parameters, on the card and on the CPU path: "err_v" and
+    "err_g" relative to the CPU's largest magnitude, "abs_g" the gradient's
+    largest absolute error, "scale_g" the CPU gradient's largest entry,
+    "nll" the card's values; with f64 "err_v64" the card's value error
+    against the CPU path in float64."""
+    from bayesian_optimization_tpu_torch.models.likelihood import GPConfig, neg_log_likelihood
+
+    n = X.shape[0]
+    Xp, Yp, mask = np.zeros((n_pad, X.shape[1])), np.zeros((n_pad, 1)), np.zeros(n_pad)
+    Xp[:n], Yp[:n, 0], mask[:n] = X, y, 1.0
+    out = {}
+    for d, dt in [(dev, torch.float32), ("cpu", torch.float32)] + [("cpu", torch.float64)] * f64:
+        def t(a):
+            return torch.tensor(a, dtype=dt, device=d)
+
+        p = t(pars).requires_grad_(True)
+        v = neg_log_likelihood(p, t(Xp), t(Yp), t(mask[:, None]), t(mask), n, noise_var,
+                               t(np.zeros((1, 1))), GPConfig(kernel=kernel))
+        (g,) = torch.autograd.grad(v.sum(), p)
+        out[str(d), dt] = (v.detach().cpu().double().numpy(), g.cpu().double().numpy())
+    (v_k, g_k), (v_p, g_p) = out[str(dev), torch.float32], out["cpu", torch.float32]
+    res = {"err_v": float(np.abs(v_k - v_p).max() / np.abs(v_p).max()),
+           "err_g": float(np.abs(g_k - g_p).max() / np.abs(g_p).max()),
+           "abs_g": float(np.abs(g_k - g_p).max()), "scale_g": float(np.abs(g_p).max()), "nll": v_k}
+    if f64:
+        v64 = out["cpu", torch.float64][0]
+        res["err_v64"] = float(np.abs(v_k - v64).max() / np.abs(v64).max())
+    return res
+
+
+def _lanes(seed, k=4, d=5):
+    """k log10 parameter rows (theta in [1e-1, 1e2], noise in [1e-5, 1e-1])."""
+    rng = np.random.default_rng(seed)
+    return np.c_[rng.uniform(-1.0, 2.0, (k, d)), rng.uniform(-5.0, -1.0, k)]
+
+
+@pytest.fixture(scope="module")
+def abs_tols():
+    """(value, gradient) absolute tolerances: 1e-4 of the largest value and
+    1e-3 of the largest gradient entry of the likelihood at 4 random lanes,
+    n = 1000 (bucket 1024), where the card is held to them relatively. The
+    paths near an optimum, where the gradient nearly vanishes and a value is
+    a small difference of large float32 sums, are held to these in absolute
+    terms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    X, y = _sin_data(1000)
+    r = _likelihood_vs_cpu(torch.device("cuda"), X, y, 1024, _lanes(4))
+    return 1e-4 * float(np.abs(r["nll"]).max()), 1e-3 * r["scale_g"]
+
+
+@pytest.mark.parametrize("n, rows, kernel", [(200, 256, "matern"), (1000, 1024, "matern"),
+                                             (200, 256, "absolute_exponential"),
+                                             (200, 256, ("matern", 3.5))], ids=str)
+def test_likelihood_and_gradient_against_the_cpu(dev, n, rows, kernel):
+    """The concentrated likelihood at 4 random lanes on the card against
+    the CPU path: the value within 1e-4 relative, the Matern's gradient
+    within 1e-3 of its largest entry."""
+    X, y = _sin_data(n)
+    r = _likelihood_vs_cpu(dev, X, y, rows, _lanes(4 if n == 1000 else 3), kernel=kernel)
+    assert r["err_v"] < 1e-4, r
+    if kernel == "matern":
+        assert r["err_g"] < 1e-3, r
+
+
+def test_fit_and_ei_argmax_on_the_card(dev, monkeypatch):
+    """The main path at n = 200: a cold fit, a warm refit and the BFGS EI
+    argmax (25 restarts). Every kernel launches, the L-BFGS update once a
+    trip (trips counted at the objective), the factorisation is sound (min
+    pivot above PIV_TOL, finite likelihood and gamma), the mean is within
+    0.1 of y at 64 training points, and the winner is finite."""
+    from bayesian_optimization_tpu_torch import AcquisitionArgmax, RealSpace
+    from bayesian_optimization_tpu_torch.models.likelihood import PIV_TOL
+    from bayesian_optimization_tpu_torch.ops import optimize
+
+    X, y = _sin_data(200)
+    gp = _gp(dev)
+    argmax = AcquisitionArgmax(RealSpace([[0.0, 1.0]] * 5).encoding(), method="BFGS", n_restart=25,
+                               seed=0, device=dev)
+    trips, inner = [0], optimize._value_and_grad
+
+    def counted(*args):
+        trips[0] += 1
+        return inner(*args)
+
+    monkeypatch.setattr(optimize, "_value_and_grad", counted)
+    c0 = _counts()
+    gp.fit(X, y)
+    gp.fit(X, y)
+    u, val = argmax(gp.posterior, gp.config, "EI", {"plugin": float(y.min())})
+    torch.cuda.synchronize()
+    assert _launched(c0)
+    assert _counts()["lbfgs_update_fused"] - c0["lbfgs_update_fused"] == trips[0] > 0
+    assert u.shape == (5,) and np.all(np.isfinite(u)) and np.isfinite(val)
+    assert float(gp.posterior.min_pivot) > PIV_TOL
+    assert np.isfinite(gp.log_likelihood_) and bool(torch.isfinite(gp.posterior.gamma).all())
+    assert float(np.abs(gp.predict(X[:64]) - y[:64]).max()) < 0.1
+
+
+def test_fmin_on_the_card(dev):
+    """fmin on the 2-D sphere (parity config 1 cut to 10 of its 30
+    evaluations, seed 42): every evaluation made, the result below the
+    DoE's best."""
+    from bayesian_optimization_tpu_torch import fmin
+
+    def sphere(x):
+        return float(np.sum(np.asarray(x, dtype=float) ** 2))
+
+    xopt, fopt, _, evals, hist = fmin(sphere, [-5.0] * 2, [5.0] * 2, max_FEs=10, x0=5, seed=42, device=dev)
+    assert evals == 10 and fopt < min(sphere(x) for x in hist[0])
+
+
+def _mixed_space():
+    """Parity config 4's space (benchmark/parity.py:100-107), seed 0."""
+    from bayesian_optimization_tpu_torch import DiscreteSpace, IntegerSpace, RealSpace
+
+    s = (RealSpace([[-3.0, 3.0]] * 2, var_name="r") + IntegerSpace([0, 10], var_name="i")
+         + DiscreteSpace(["A", "B", "C"], var_name="c"))
+    s.random_seed = 0
+    return s
+
+
+def _mixed_obj(x):
+    """Parity config 4's objective (benchmark/parity.py:43-48); minimum 0."""
+    return (float(x[0]) ** 2 + float(x[1]) ** 2 + abs(int(x[2]) - 5) / 5.0
+            + {"A": 0.0, "B": 0.7, "C": 1.5}[x[3]])
+
+
+def _mixed_data(n):
+    """(encoding, embedded rows (n, 6), standardized y) of n LHS samples."""
+    space = _mixed_space()
+    enc = space.encoding()
+    raw = space.sample(n, method="LHS")
+    y = np.array([_mixed_obj(list(r)) for r in raw])
+    return enc, enc.unit_to_embed_np(enc.encode_unit(raw)), (y - y.mean()) / y.std()
+
+
+def test_mixed_space_fit_against_float64(dev):
+    """The mixed space's fit (parity config 4's, 200 observations, 6
+    embedded features): every kernel launches, and the card's likelihood at
+    the fit's hyperparameters is within 3e-4 of the CPU path's in float64
+    (the fit can end on an ill-conditioned R, theta at its bounds, where
+    each float32 path is ~1e-4 off float64 in its own direction)."""
+    _, X, y = _mixed_data(200)
+    gp = _gp(dev, d=6)
+    c0 = _counts()
+    gp.fit(X, y)
+    assert _launched(c0) and np.isfinite(gp.log_likelihood_)
+    par = np.r_[np.log10(gp.theta_), np.log10(gp.sigma2)][None]
+    r = _likelihood_vs_cpu(dev, X, y, gp.posterior.X.shape[0], par, gp.noise_var, f64=True)
+    assert r["err_v64"] < 3e-4, r
+
+
+@pytest.mark.parametrize("method, model", [("OnePlusOne_Cholesky_CMA", "gp"), ("SMC", "gp"),
+                                           ("MIES", "gp"), ("MIES", "forest")])
+def test_engine_argmax_against_the_cpu(dev, method, model):
+    """The derivative-free engines' EI (MGFI on the forest) argmax on the
+    card: CMA and SMC on a d = 5 GP, MIES on the mixed space's GP and on a
+    100-tree forest; the winner's value is the CPU path's criterion there
+    (1e-4 relative; MIES on the GP against the CPU path in float64: its fit
+    can end on an ill-conditioned R, theta at its bounds, where each
+    float32 path is off float64 in its own direction; at n = 1000, where
+    the CPU float32 path is within 1e-6 of float64, at n = 200 it is 1.2e-4
+    off), the Matern forward launched on a GP."""
+    from bayesian_optimization_tpu_torch import AcquisitionArgmax, RandomForest, RealSpace
+
+    if method == "MIES":
+        enc, X, y = _mixed_data(1000 if model == "gp" else 200)
+    else:
+        enc, (X, y) = RealSpace([[0.0, 1.0]] * 5).encoding(), _sin_data(200)
+    m = _gp(dev, d=X.shape[1]) if model == "gp" else RandomForest(feature_space="embedding",
+                                                                    random_state=0, device=dev)
+    m.fit(X, y)
+    acq, params = ("EI", {"plugin": float(y.min())}) if model == "gp" else ("MGFI", {"plugin": float(y.min()),
+                                                                                     "t": 2.0})
+    c0 = _counts()
+    u, v = AcquisitionArgmax(enc, method=method, seed=0, device=dev)(m.posterior, m.config, acq, params)
+    assert model == "forest" or _launched(c0, ("matern_fused",))
+    dtype = torch.float64 if (method, model) == ("MIES", "gp") else torch.float32
+    want = _cpu_criterion(m.posterior, m.config, enc, acq, params, u, dtype)[0]
+    assert np.isfinite(v) and abs(v - want) < 1e-4 * abs(want), (v, want)
+
+
+def test_cma_fit_against_the_cpu(dev, abs_tols):
+    """The CMA hyperparameter fit at n = 200: the Matern forward and the
+    factorisation launch, the fit is sound, and at its hyperparameters the
+    card's likelihood is the CPU's within 1e-4 relative and its gradient
+    within the absolute tolerance of abs_tols (at an optimum the gradient
+    nearly vanishes: its own largest entry is no yardstick)."""
+    from bayesian_optimization_tpu_torch.models.likelihood import PIV_TOL
+
+    X, y = _sin_data(200)
+    gp = _gp(dev, optimizer="CMA")
+    c0 = _counts()
+    gp.fit(X, y)
+    assert _launched(c0, ("matern_fused", "whiten_fused"))
+    assert np.isfinite(gp.log_likelihood_) and float(gp.posterior.min_pivot) > PIV_TOL
+    par = np.r_[np.log10(gp.theta_), np.log10(gp.sigma2)][None]
+    r = _likelihood_vs_cpu(dev, X, y, gp.posterior.X.shape[0], par, gp.noise_var)
+    assert r["err_v"] < 1e-4 and r["abs_g"] < abs_tols[1], r
+
+
+def _sphere(x):
+    return float(np.sum(np.asarray(x, dtype=float) ** 2))
+
+
+def _con_obj(x):
+    """Parity config 6's objective (benchmark/parity.py:244-246)."""
+    x = np.asarray(x, dtype=float)
+    return float(np.sum(x ** 2) + 5 * np.sum(x) + 10)
+
+
+@pytest.mark.parametrize("config", [3, 4, 6])
+def test_parity_configs_end_to_end(dev, config):
+    """Parity configs end to end on the card, seed 0 (benchmark/parity.py):
+    3 (ParallelBO MGFI, q = 8, 5-D sphere) cut to 24 of its 48 evaluations
+    (two batches: a tell, a refit and a second batch ask; each batch holds
+    distinct points) and 4 (the mixed
+    space, MIES) cut to 16 of 40, each below its DoE's best with every
+    evaluation made; 6 (h = sum x - 1, BFGS) cut to 12 of its 20: |h| <=
+    0.1 and the result within the reference's worst seed over all 20
+    (PARITY_6_constrained.json).
+    The GP's kernels launch on each."""
+    from bayesian_optimization_tpu_torch import BO, GaussianProcess, ParallelBO, RealSpace
+    from bayesian_optimization_tpu_torch.models.trend import constant_trend
+
+    c0 = _counts()
+    if config == 3:
+        gp = GaussianProcess(mean=constant_trend(5), corr="matern", thetaL=1e-2 * np.ones(5),
+                             thetaU=1e4 * np.ones(5), nugget=1e-6, random_state=0, device=dev)
+        opt = ParallelBO(search_space=RealSpace([[-5.0, 5.0]] * 5, random_seed=0), obj_fun=_sphere,
+                         model=gp, n_point=8, acquisition_fun="MGFI", acquisition_par={"t": 2.0},
+                         DoE_size=8, max_FEs=24, random_seed=0, device=dev)
+        opt.run()
+        assert opt.eval_count == 24 and opt.fopt < float(np.min(opt.data.fitness[:8]))
+        V = np.asarray(opt.data.values, dtype=float)
+        assert all(len({tuple(np.round(v, 6)) for v in V[k:k + 8]}) > 1 for k in (8, 16))
+        assert _launched(c0)
+    elif config == 4:
+        opt = BO(search_space=_mixed_space(), obj_fun=_mixed_obj, DoE_size=8, max_FEs=16,
+                 acquisition_fun="MGFI", acquisition_par={"t": 2.0}, random_seed=0, device=dev)
+        assert opt._argmax.method == "MIES"
+        opt.run()
+        assert opt.eval_count == 16 and np.isfinite(opt.fopt)
+        assert opt.fopt <= float(np.min(opt.data.fitness[:8]))
+        assert _launched(c0, ("matern_fused",))
+    else:
+        model = GaussianProcess(corr="squared_exponential", thetaL=1e-5 * np.ones(2), thetaU=np.ones(2),
+                                nugget=1e-1, random_state=0, device=dev)
+        opt = BO(search_space=RealSpace([0, 1]) * 2, obj_fun=_con_obj, eq_fun=lambda x: np.sum(x) - 1,
+                 model=model, max_FEs=12, DoE_size=3, acquisition_fun="MGFI", acquisition_par={"t": 2},
+                 acquisition_optimization={"optimizer": "BFGS"}, random_seed=0, device=dev)
+        assert opt._constraints.traceable and opt._optimizer_name == "BFGS"
+        xopt, fopt, _ = opt.run()
+        assert abs(float(np.sum(np.asarray(xopt, dtype=float)) - 1)) <= 0.1
+        assert float(fopt[0]) <= 15.5057 and opt.eval_count == 12
+        assert _launched(c0)
+
+
+def test_sampler_target_against_the_cpu(dev, abs_tols):
+    """A NUTS fit (n = 60, 8 chains) on the card; the sampler's target and
+    its gradient at the chains' states on the card against the CPU path,
+    within abs_tols (near an optimum the target is a small difference of
+    large float32 sums and the gradient nearly vanishes)."""
+    from bayesian_optimization_tpu_torch.models.hmc import _value_and_grad
+    from bayesian_optimization_tpu_torch.models.likelihood import neg_log_likelihood
+
+    X, y = _sin_data(60)
+    gp = _gp(dev, optimizer="NUTS")
+    gp.hmc_warmup, gp.n_ensemble = 16, 8
+    gp.fit(X, y)
+    x_box = gp.sample_chains_[-1]  # (chains, parameters)
+    rows = gp.posterior.X.shape[-2]
+    Xp, Yp, mask = np.zeros((rows, 5)), np.zeros((rows, 1)), np.zeros(rows)
+    Xp[:60], Yp[:60, 0], mask[:60] = X, y, 1.0
+    b = gp._hyper_bounds(5, y)
+    out = []
+    for d in (dev, "cpu"):
+        def t(a):
+            return torch.tensor(a, dtype=torch.float32, device=d)
+
+        Xt, Yt, mt, lo, hi = t(Xp), t(Yp), t(mask), t(b[:, 0]), t(b[:, 1])
+        config = gp.config._replace(n_ensemble=0)
+
+        def logp(p):
+            return -neg_log_likelihood(p, Xt, Yt, mt[:, None], mt, 60, gp.noise_var, t(np.zeros((1, 1))),
+                                       config, prior_lo=lo, prior_hi=hi)
+
+        frac = ((t(x_box) - lo) / (hi - lo)).clamp(1e-6, 1 - 1e-6)  # as ops/optimize.from_box
+        lp, g = _value_and_grad(logp, lo, hi)(torch.log(frac) - torch.log1p(-frac))
+        out.append((lp.detach().cpu().double().numpy(), g.cpu().double().numpy()))
+    (lp_k, g_k), (lp_c, g_c) = out
+    assert np.abs(lp_k - lp_c).max() < abs_tols[0] and np.abs(g_k - g_c).max() < abs_tols[1]
+
+
+def test_constrained_criterion_and_gradient_against_the_cpu(dev):
+    """The BFGS EI argmax under a traced inequality (sum x <= 1.5, written
+    with numpy) on the card: the winner is feasible, and the card's
+    penalized criterion and its gradient at the winner and 8 random points
+    are the CPU path's (1e-4 relative; the gradient within 1e-3 of its
+    largest entry)."""
+    from bayesian_optimization_tpu_torch import AcquisitionArgmax, ConstraintProgram, RealSpace
+    from bayesian_optimization_tpu_torch.optim.argmax import make_unit_criterion
+
+    def g(x):
+        return np.sum(x) - 1.5
+
+    X, y = _sin_data(200)
+    gp = _gp(dev).fit(X, y)
+    enc = RealSpace([[0.0, 1.0]] * 5).encoding()
+    cp = ConstraintProgram(enc, g=g, device=dev)
+    am = AcquisitionArgmax(enc, method="BFGS", n_restart=25, seed=0, constraints=cp, device=dev)
+    params = {"plugin": float(y.min()), "_penalty_t": 10.0 + am.max_FEs}
+    u, _ = am(gp.posterior, gp.config, "EI", params)
+    assert g(u) <= 0.0, u
+    cpu_state = type(gp.posterior)(*(t.cpu() for t in gp.posterior))
+    U = np.r_[u[None], np.random.default_rng(12).uniform(0, 1, (8, 5))]
+    vals = []
+    for d, state, prog in ((dev, gp.posterior, cp), ("cpu", cpu_state, ConstraintProgram(enc, g=g, device="cpu"))):
+        crit = make_unit_criterion(enc, state, gp.config, "EI",
+                                   {k: torch.tensor(v, dtype=torch.float32, device=d) for k, v in params.items()},
+                                   constraints=prog)
+        Ut = torch.tensor(U, dtype=torch.float32, device=d, requires_grad=True)
+        val = crit(Ut)
+        (grad,) = torch.autograd.grad(val.sum(), Ut)
+        vals.append((val.detach().cpu().double().numpy(), grad.cpu().double().numpy()))
+    (v_k, g_k), (v_c, g_c) = vals
+    assert np.abs(v_k - v_c).max() < 1e-4 * np.abs(v_c).max()
+    assert np.abs(g_k - g_c).max() < 1e-3 * np.abs(g_c).max()
+
+
+def test_gei_against_the_cpu(dev):
+    """One BO iteration with GEI (g = 2) on the card at n = 200: the refit
+    and the argmax launch every kernel, and the criterion at the winner is
+    the CPU path's (1e-4 relative)."""
+    from bayesian_optimization_tpu_torch import BO, RealSpace
+
+    X, y = _sin_data(200)
+    gp = _gp(dev)
+    opt = BO(search_space=RealSpace([[0.0, 1.0]] * 5), obj_fun=_sphere, model=gp, acquisition_fun="GEI",
+             acquisition_par={"g": 2}, random_seed=0, device=dev)
+    c0 = _counts()
+    opt.tell([list(r) for r in X], list(y))
+    cands, vals = opt.arg_max_acquisition(return_value=True)
+    assert _launched(c0)
+    enc = RealSpace([[0.0, 1.0]] * 5).encoding()
+    u = enc.encode_unit(np.asarray(cands, dtype=object))
+    want = _cpu_criterion(gp.posterior, gp.config, enc, "GEI2", {"plugin": opt.fmin}, u)
+    assert np.all(np.isfinite(vals)) and np.max(np.abs(np.asarray(vals) - want) / np.abs(want)) < 1e-4
+
+
+def test_nonparametric_trend_argmax_against_the_cpu(dev):
+    """A GP under a NonparametricTrend (a 100-tree forest) at n = 200 and
+    the BFGS EI argmax with the forest in the criterion (plugin at y's 10th
+    percentile: at min(y) the residual GP's EI underflows and no lane
+    moves): every kernel launches, the winner beats every start and lies
+    away from them, and its criterion is the CPU path's (1e-4 relative)."""
+    from bayesian_optimization_tpu_torch import AcquisitionArgmax, NonparametricTrend, RandomForest, RealSpace
+
+    X, y = _sin_data(200)
+    forest = RandomForest(feature_space="embedding", random_state=0, device=dev)
+    gp = _gp(dev, mean=NonparametricTrend(forest, device=dev))
+    am = AcquisitionArgmax(RealSpace([[0.0, 1.0]] * 5).encoding(), method="BFGS", n_restart=25, seed=0,
+                           device=dev)
+    c0 = _counts()
+    forest.fit(X, y)
+    gp.fit(X, y)
+    params = {"plugin": float(np.quantile(y, 0.1))}
+    gen = torch.Generator().set_state(am._gen.get_state())  # the argmax's own starts
+    starts = torch.rand((am.n_restart, 5), generator=gen, dtype=am.encoding.dtype).numpy()
+    u, v = am(gp.posterior, gp.config, "EI",
+              {**params, "_prior_state": forest.posterior, "_prior_depth": forest.config.max_depth})
+    assert _launched(c0)
+    at_starts = _cpu_criterion(gp.posterior, gp.config, am.encoding, "EI", params, starts, prior=forest)
+    assert v > float(at_starts.max()) and float(np.sqrt(((starts - u) ** 2).sum(1)).min()) > 1e-3
+    want = _cpu_criterion(gp.posterior, gp.config, am.encoding, "EI", params, u, prior=forest)[0]
+    assert abs(v - want) < 1e-4 * abs(want), (v, want)
+
+
+@pytest.mark.parametrize("case", ["conditional", "forest"])
+def test_tree_surrogate_bo_end_to_end(dev, case):
+    """ConditionalBO on tests/test_extensions.py's conditional space (16
+    evaluations, seed 0: every evaluation made, a finite result), and BO
+    with a RandomForest on parity config 4's mixed problem (40 evaluations,
+    seed 0: below the DoE's best), on the card."""
+    from bayesian_optimization_tpu_torch import BO, ConditionalBO, RandomForest, SearchSpace
+    from bayesian_optimization_tpu_torch.space import Discrete, Integer, Real
+
+    if case == "conditional":
+        space = SearchSpace([Integer([1, 3], "x"), Discrete(["A", "B", "C"], "y1", conditions="x == 1"),
+                             Discrete(["A", "B", "C"], "y2", conditions="x == 2"), Real([-5, 5], "z")])
+
+        def fitness(p):
+            return float(p["x"] ** 2 + p["z"] ** 2 + (p.get("y1") == "B") + (p.get("y2") == "A"))
+
+        opt = ConditionalBO(search_space=space, obj_fun=fitness, DoE_size=4, max_FEs=16, random_seed=0,
+                            device=dev)
+        opt.run()
+        assert opt.eval_count == 16 and np.isfinite(opt.fopt)
+    else:
+        opt = BO(search_space=_mixed_space(), obj_fun=_mixed_obj,
+                 model=RandomForest(feature_space="embedding", random_state=0, device=dev), DoE_size=8,
+                 max_FEs=40, acquisition_fun="MGFI", acquisition_par={"t": 2.0}, random_seed=0, device=dev)
+        assert opt._argmax.method == "MIES"
+        opt.run()
+        assert opt.eval_count == 40 and opt.fopt < float(np.min(opt.data.fitness[:8]))
+
+
+def _bi_sphere(d=3):
+    return [lambda x, c=c: float(np.sum((np.asarray(x, dtype=float) - c) ** 2)) for c in (0.2, 0.8)]
+
+
+def test_ehvi_argmax_beats_its_starts(dev):
+    """MOBO's BFGS EHVI argmax on the card (80 bi-sphere points, d = 3):
+    every kernel of the 2-output fit launches, and the winner's EHVI is at
+    least the best of the pool of starts it drew, on the card's criterion."""
+    from bayesian_optimization_tpu_torch import MOBO, RealSpace
+    from bayesian_optimization_tpu_torch.optim.argmax import make_unit_criterion
+
+    X = np.random.default_rng(2).uniform(0, 1, (80, 3))
+    F = np.c_[((X - 0.2) ** 2).sum(1), ((X - 0.8) ** 2).sum(1)]
+    opt = MOBO(search_space=RealSpace([[0.0, 1.0]] * 3, random_seed=0), obj_fun=_bi_sphere(), n_obj=2,
+               DoE_size=10, max_FEs=10 ** 4, random_seed=0, device=dev)
+    c0 = _counts()
+    opt.tell(X.tolist(), F)
+    am, par = opt._argmax, opt._acq_par_defaults({})
+    pool = am._gen.get_state()
+    Xw, vals = opt.arg_max_acquisition(return_value=True)
+    assert _launched(c0)
+    starts = torch.rand((1, am.n_restart, 3), generator=torch.Generator().set_state(pool))[0]
+    crit = make_unit_criterion(opt.encoding, opt.model.posterior, opt.model.config, "EHVI", am._lane_params(par))
+    with torch.no_grad():
+        at_starts = crit(starts.to(dev)).cpu().double().numpy()
+    assert float(vals[0]) >= at_starts.max()
+
+
+@pytest.mark.parametrize("case", ["gp", "forest", "constrained"])
+def test_mobo_end_to_end_on_the_card(dev, case):
+    """MOBO on the bi-sphere in d = 2, seed 0, on the card: with the GP
+    (DoE 10, 24 objective evaluations: 2 asks), a 30-tree RandomForest
+    (MIES over a multi-output forest, DoE 6, 20) and under x0 + x1 <= 1
+    (DoE 6, 16):
+    every evaluation made, the final front's hypervolume above its DoE's on
+    the final normalization, every constrained point feasible."""
+    from bayesian_optimization_tpu_torch import MOBO, RandomForest, RealSpace
+    from bayesian_optimization_tpu_torch.ops.box_decomposition import NondominatedPartitioning
+
+    kw = {"gp": {"DoE_size": 10, "max_FEs": 24},
+          "forest": {"DoE_size": 6, "max_FEs": 20,
+                     "model": RandomForest(n_estimators=30, random_state=0, feature_space="embedding",
+                                           device=dev)},
+          "constrained": {"DoE_size": 6, "max_FEs": 16, "ineq_fun": lambda x: x[0] + x[1] - 1.0}}[case]
+    opt = MOBO(search_space=RealSpace([[0.0, 1.0]] * 2, random_seed=0), obj_fun=_bi_sphere(), n_obj=2,
+               random_seed=0, device=dev, **kw)
+    assert (opt._argmax.method == "MIES") == (case == "forest")
+    opt.run()
+    doe = NondominatedPartitioning(opt.ref_point, opt.y[:kw["DoE_size"]]).compute_hypervolume()
+    assert opt._last_hv > doe and opt.eval_count == kw["max_FEs"]
+    if case == "constrained":
+        assert float(np.asarray(opt.data.values, dtype=float).sum(1).max()) <= 1.0 + 1e-6
+
+
+def _http(url, payload=None):
+    """One request (POST with a payload); a reply carrying "error" fails."""
+    import json
+    import urllib.request
+
+    req = url if payload is None else urllib.request.Request(
+        url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        out = json.loads(r.read())
+    assert "error" not in out, (url, out)
+    return out
+
+
+@pytest.fixture
+def card_server(dev):
+    import threading
+
+    from bayesian_optimization_tpu_torch.service.http_server import serve
+
+    server = serve(port=0, device=dev)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    yield f"http://127.0.0.1:{server.server_address[1]}"
+    server.shutdown()
+    server.server_close()
+    thread.join()
+
+
+def test_http_service_on_the_card(card_server):
+    """The HTTP service with device cuda on [0, 1]^5: a DoE ask, a tell of
+    200 points (a cold fit on the card) and the BFGS EI ask, which launch
+    every kernel; the point lies in the box, recommend's fopt is the
+    smallest told y, status counts the tells, finalize answers."""
+    url = card_server
+    X, y = _sin_data(200)
+    job = _http(url, {"search_param": {"x": {"type": "r", "range": [0, 1], "N": 5}},
+                      "bo_param": {"DoE_size": 5, "max_iter": 2000, "random_seed": 0}})["job_id"]
+    assert len(_http(f"{url}/?ask=null&job_id={job}")["X"]) == 5
+    c0 = _counts()
+    _http(url, {"job_id": job, "X": [{f"x{j}": float(v) for j, v in enumerate(r)} for r in X],
+                "y": y.tolist()})
+    asked = _http(f"{url}/?ask=null&job_id={job}")["X"]
+    assert _launched(c0)
+    u = np.array([[x[f"x{j}"] for j in range(5)] for x in asked])
+    assert u.shape == (1, 5) and np.all((u >= 0) & (u <= 1))
+    assert _http(f"{url}/?recommend=null&job_id={job}")["fopt"] == [float(y.min())]
+    st = _http(f"{url}/?status=null&job_id={job}")["job"]
+    assert st["eval_count"] == len(X) and st["fopt"] == float(y.min())
+    assert _http(f"{url}/?finalize=null&job_id={job}")["finalized"]
+
+
+def test_two_service_jobs_at_once_on_the_card(card_server):
+    """A ParallelBO job (q = 4) and a mixed-space (MIES) job from two client
+    threads at once, 3 ask/tell rounds each, with device cuda: each asks
+    its DoE then its batches, and the GP's kernels launch."""
+    import threading
+
+    url = card_server
+    jobs = {"parallel": ({"x": {"type": "r", "range": [-5, 5], "N": 5}},
+                         {"n_point": 4, "DoE_size": 8, "max_iter": 10, "random_seed": 0},
+                         lambda x: _sphere([x[f"x{j}"] for j in range(5)])),
+            "mixed": ({"r": {"type": "r", "range": [-3, 3], "N": 2}, "i": {"type": "i", "range": [0, 10]},
+                       "c": {"type": "c", "range": ["A", "B", "C"]}},
+                      {"DoE_size": 8, "max_iter": 10, "random_seed": 0},
+                      lambda x: _mixed_obj([x["r0"], x["r1"], x["i"], x["c"]]))}
+    sizes, errors = {}, []
+
+    def client(name):
+        try:
+            space, bo, f = jobs[name]
+            job = _http(url, {"search_param": space, "bo_param": bo})["job_id"]
+            sizes[name] = []
+            for _ in range(3):
+                X = _http(f"{url}/?ask=null&job_id={job}")["X"]
+                sizes[name].append(len(X))
+                _http(url, {"job_id": job, "X": X, "y": [f(x) for x in X]})
+            _http(f"{url}/?finalize=null&job_id={job}")
+        except BaseException as e:  # re-raised in the test's thread
+            errors.append(e)
+
+    c0 = _counts()
+    threads = [threading.Thread(target=client, args=(name,)) for name in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize()
+    assert _launched(c0)
+    assert sizes == {"parallel": [8, 4, 4], "mixed": [8, 1, 1]}, sizes
+
+
+def test_daemon_on_the_card(dev):
+    """`python -m ...simple_http_server -d --device cuda`: it answers
+    health, runs a job's DoE ask, tell and ask (a fit on the card), stops
+    by its pidfile, and its pid and pidfile are gone."""
+    import os
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.error
+
+    from bayesian_optimization_tpu_torch.service import daemon
+    from bayesian_optimization_tpu_torch.service.http_server import pidfile_for
+
+    def gone(pid):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+        except FileNotFoundError:
+            return True
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pidfile = pidfile_for(port)
+    assert not os.path.exists(pidfile)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    launcher = subprocess.run([sys.executable, "-m", "bayesian_optimization_tpu_torch.simple_http_server",
+                               "-d", "--device", "cuda", "-w", str(port)], env=env, capture_output=True,
+                              text=True, timeout=120)
+    assert launcher.returncode == 0, launcher.stderr
+    pid, url = None, f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            pid = pid or daemon.read_pid(pidfile)
+            try:
+                health = _http(f"{url}/health")
+                break
+            except (urllib.error.URLError, ConnectionError):
+                assert time.monotonic() < deadline, "the daemon never answered"
+                time.sleep(0.2)
+        pid = daemon.read_pid(pidfile)
+        assert health["status"] == "ok" and pid is not None and daemon.status(pidfile)
+        job = _http(url, {"search_param": {"x": {"type": "r", "range": [-5, 5], "N": 2}},
+                          "bo_param": {"DoE_size": 5, "random_seed": 0}})["job_id"]
+        X = _http(f"{url}/?ask=null&job_id={job}")["X"]
+        _http(url, {"job_id": job, "X": X, "y": [x["x0"] ** 2 + x["x1"] ** 2 for x in X]})
+        nxt = _http(f"{url}/?ask=null&job_id={job}")["X"]
+        assert len(nxt) == 1 and all(-5 <= v <= 5 for v in nxt[0].values()), nxt
+        assert daemon.stop(pidfile)
+        deadline = time.monotonic() + 60
+        while not (gone(pid) and not os.path.exists(pidfile)):
+            assert time.monotonic() < deadline, "the daemon outlived SIGTERM"
+            time.sleep(0.1)
+    finally:
+        if pid is not None and not gone(pid):
+            os.kill(pid, signal.SIGKILL)  # this exact pid, never by pattern
+        if pid is not None and os.path.exists(pidfile):
+            os.remove(pidfile)
+
+
+def test_default_mesh_argmax_equals_the_unsharded(dev):
+    """The default particle mesh's BFGS EI argmax from one pool of 25
+    starts: one gather, and on one card the same winner as the unsharded
+    argmax (on more cards within 1e-4 relative)."""
+    from bayesian_optimization_tpu_torch import AcquisitionArgmax, RealSpace
+    from bayesian_optimization_tpu_torch.parallel import make_particle_mesh
+
+    X, y = _sin_data(200)
+    gp = _gp(dev).fit(X, y)
+    enc = RealSpace([[0.0, 1.0]] * 5).encoding()
+    mesh = make_particle_mesh()
+    pool = np.random.default_rng(9).uniform(0, 1, (25, 5))
+    args = (gp.posterior, gp.config, "EI", {"plugin": float(y.min())})
+    u1, v1 = AcquisitionArgmax(enc, method="BFGS", n_restart=25, seed=0, mesh=mesh, device=dev)(*args, x0_seed=pool)
+    u0, v0 = AcquisitionArgmax(enc, method="BFGS", n_restart=25, seed=0, device=dev)(*args, x0_seed=pool)
+    assert mesh.gathers == 1
+    if mesh.size == 1:
+        assert np.array_equal(u1, u0) and v1 == v0
+    else:
+        assert abs(v1 - v0) <= 1e-4 * abs(v0)
+
+
+def test_entry_against_the_cpu(dev, abs_tols):
+    """entry() on the card (8 theta x n = 24 padded to 32, d = 3): every
+    kernel launches, the values within 1e-4 relative of the CPU path's, the
+    gradient within abs_tols and within 1e-3 of its largest entry; and
+    dryrun_multidevice(2) runs on the card twice over."""
+    from bayesian_optimization_tpu_torch.entry import dryrun_multidevice, entry
+
+    c0 = _counts()
+    fn, args = entry(dev)
+    vals, grads = fn(*args)
+    torch.cuda.synchronize()
+    assert _launched(c0)
+    fn_c, args_c = entry(device="cpu")
+    vals_c, grads_c = fn_c(*args_c)
+    abs_g = float((grads.cpu() - grads_c).abs().max())
+    assert float(((vals.cpu() - vals_c).abs() / vals_c.abs()).max()) < 1e-4
+    assert abs_g < abs_tols[1] and abs_g / float(grads_c.abs().max()) < 1e-3
+    dryrun_multidevice(2, devices=[dev] * 2)
+
+
+def _unit_bo(dev, cls=None, **kw):
+    """cls (BO) on [0, 1]^5 (variables x0..x4) on the card with the default
+    model, seed 0, a DoE of 10, minimizing sum sin(3 x)."""
+    from bayesian_optimization_tpu_torch import BO, RealSpace
+
+    return (cls or BO)(search_space=RealSpace([[0.0, 1.0]] * 5, var_name="x", random_seed=0),
+                       obj_fun=kw.pop("obj_fun", _sin_sum), DoE_size=10, random_seed=0, device=dev, **kw)
+
+
+def _sin_sum(x):
+    return float(np.sin(3 * np.asarray(x, dtype=float)).sum())
+
+
+@pytest.mark.parametrize("flavor", ["NoisyBO", "AnnealingBO", "SelfAdaptiveBO", "MultiAcquisitionBO"])
+def test_bo_flavors_on_the_card(dev, flavor):
+    """A batch BO flavour on the card, q = 2, the DoE and one batch: the
+    GP's kernels launch, every evaluation is made, and the criterion at
+    each winner of the last ask (MultiAcquisitionBO: of the last two calls)
+    is the CPU path's in float64 at the same posterior, within 1e-4 of
+    |value| (of max(|value|, 1) for UCB, which crosses 0), or within 10
+    times the CPU float32 path's own error where that is larger; on these
+    near-interpolating posteriors float32's error scatters from point to
+    point, so its scale is the largest over the winner and 32 points within
+    1e-2 of it."""
+    import bayesian_optimization_tpu_torch as bo
+
+    noise = np.random.default_rng(3)
+    kw = {"NoisyBO": {"obj_fun": lambda x: _sin_sum(x) + 0.1 * float(noise.standard_normal())},
+          "AnnealingBO": {"t0": 2.0, "tf": 0.1}}.get(flavor, {})
+    opt = _unit_bo(dev, getattr(bo, flavor), n_point=2, max_FEs=12, **kw)
+    calls, batch = [], opt._argmax.batch
+
+    def recorder(state, config, acq, pars, **k):
+        us, vals = batch(state, config, acq, pars, **k)
+        calls.append((acq, pars, us, vals, type(state)(*(t.clone() for t in state)), config))
+        return us, vals
+
+    opt._argmax.batch = recorder
+    c0 = _counts()
+    opt.run()
+    assert _launched(c0) and opt.eval_count >= 12
+    for acq, pars, us, vals, state, config in calls[-2:] if flavor == "MultiAcquisitionBO" else calls[-1:]:
+        for p, u, v in zip(pars, us, vals):
+            near = np.clip(u + np.random.default_rng(0).uniform(-1e-2, 1e-2, (32, u.size)), 0.0, 1.0)
+            U = np.vstack([u, near])
+            c32, c64 = (_cpu_criterion(state, config, opt.encoding, acq, p, U, dt)
+                        for dt in (torch.float32, torch.float64))
+            scale = max(abs(c64[0]), 1.0 if acq == "UCB" else 1e-30)
+            tol = max(1e-4, 10.0 * float(np.abs(c32 - c64).max()) / scale)
+            assert np.isfinite(v) and abs(v - c64[0]) / scale <= tol, (acq, v, c64[0], tol)
+
+
+def test_checkpoints_on_the_card(dev, tmp_path):
+    """A BO on the card after its DoE: save -> load in this process puts the
+    loaded BO and its posterior on the card, and its ask and tell launch
+    the GP's kernels; save_state -> a fresh BO -> load_state gives the same
+    theta (1e-6 in log10) and counters."""
+    opt = _unit_bo(dev, max_FEs=100)
+    X = opt.ask()
+    opt.tell(X, [_sin_sum(x) for x in X])
+    theta0, counters0 = opt.model.theta_.copy(), (opt.iter_count, opt.eval_count)
+    opt.save(str(tmp_path / "bo.pkl"))
+    opt.save_state(str(tmp_path / "bo.json"))
+    loaded = type(opt).load(str(tmp_path / "bo.pkl"))
+    fresh = _unit_bo(dev, max_FEs=100)
+    fresh.load_state(str(tmp_path / "bo.json"))
+    assert loaded.device.type == loaded.model.device.type == loaded.model.posterior.L.device.type == "cuda"
+    c0 = _counts()
+    (x,) = loaded.ask()
+    loaded.tell([x], [_sin_sum(x)])
+    assert _launched(c0)
+    assert float(np.abs(np.log10(fresh.model.theta_) - np.log10(theta0)).max()) <= 1e-6
+    assert (fresh.iter_count, fresh.eval_count) == counters0
+
+
+def test_fixed_ask_and_warm_data_on_the_card(dev):
+    """ask(fixed={"x0": 0.5}) on the card, through the argmax (after a DoE)
+    and through the DoE: every row at x0 = 0.5, the rest in [0, 1]; warm
+    data with eval_type="dict": the warm rows are the data and no
+    evaluation is counted, the fit launches the GP's kernels, a run adds
+    its evaluations and an ask returns dicts."""
+    opt = _unit_bo(dev, max_FEs=100)
+    X = opt.ask()
+    opt.tell(X, [_sin_sum(x) for x in X])
+    c0 = _counts()
+    Xf = opt.ask(fixed={"x0": 0.5})
+    opt.tell(Xf, [_sin_sum(x) for x in Xf])
+    assert _launched(c0)
+    for x in Xf + _unit_bo(dev, max_FEs=100).ask(fixed={"x0": 0.5}):
+        assert abs(float(x[0]) - 0.5) <= 1e-6 and all(0.0 <= float(v) <= 1.0 for v in x), x
+    X0 = np.random.default_rng(1).uniform(0, 1, (20, 5))
+    c0 = _counts()
+    warm = _unit_bo(dev, obj_fun=lambda d: _sin_sum([d[f"x{i}"] for i in range(5)]), eval_type="dict",
+                    max_FEs=2, warm_data=(X0.tolist(), [_sin_sum(x) for x in X0]))
+    assert _launched(c0) and warm.data.N == 20 and warm.eval_count == 0 and warm.model.is_fitted
+    warm.run()
+    asked = warm.ask()
+    assert isinstance(asked[0], dict) and sorted(asked[0]) == [f"x{i}" for i in range(5)]
+    assert warm.eval_count == 2 and warm.data.N == 22
+
+
+@pytest.mark.parametrize("mode", ["noise_estim", "duplicates", "escalation"])
+def test_gp_modes_on_the_card(dev, mode):
+    """A noise-estimating fit (n = 200: finite, a positive MSE), a noiseless
+    fit of duplicated, conflicting rows (finite), and a noiseless fit whose
+    correlation float32 cannot factor at any theta in its bounds (theta in
+    [1e-4, 1e-3], n = 512), which must escalate to the noisy mode; each on
+    the card, launching the GP's kernels."""
+    from bayesian_optimization_tpu_torch import GaussianProcess
+
+    rng = np.random.default_rng(1)
+    X = rng.uniform(0, 1, (512 if mode == "escalation" else 200, 5))
+    y = np.sin(3 * X).sum(1) + 0.1 * rng.standard_normal(len(X))
+    if mode == "noise_estim":
+        gp = GaussianProcess(thetaL=1e-2 * np.ones(5), thetaU=1e2 * np.ones(5), noise_estim=True, nugget=1e-6,
+                             random_state=2, device=dev)
+    else:
+        if mode == "duplicates":
+            X, y = np.vstack([X[:100], X[:100]]), np.concatenate([y[:100], y[:100] + 0.5])
+        lo, hi = (1e-4, 1e-3) if mode == "escalation" else (1e-2, 1e2)
+        gp = _gp(dev, thetaL=lo * np.ones(5), thetaU=hi * np.ones(5), nugget=0.0, random_start=4)
+    escalations, escalate = [], gp._escalate_nugget
+    gp._escalate_nugget = lambda *a: escalations.append(gp.estimation_mode) or escalate(*a)
+    c0 = _counts()
+    gp.fit(X, y)
+    mu, mse = gp.predict(X[:8], eval_MSE=True)
+    assert _launched(c0) and np.isfinite(gp.log_likelihood_) and np.all(np.isfinite(mu)) and np.all(mse >= 0)
+    if mode == "noise_estim":
+        assert float(np.mean(gp.predict(X, eval_MSE=True)[1])) > 1e-8
+    if mode == "escalation":
+        assert escalations and gp.estimation_mode == "noisy", escalations
+
+
+@pytest.mark.parametrize("path", ["hmc_fit", "vi_fit", "absolute_exponential_fit", "matern_3.5_fit",
+                                  "host_constraint", "constrained_batch", "mobo_three_objectives"])
+def test_paths_run_on_the_card(dev, path):
+    """Paths whose card check is that they run, stay finite and launch the
+    kernels they reach (and, under a constraint, stay feasible): the HMC
+    and VI fits (n = 200, 8 chains or lanes; the Matern forward and
+    backward and the factorisation), fits with the absolute-exponential and
+    nu = 7/2 kernels (plain torch covariances: the factorisation), the EI
+    argmax under a constraint that runs on the host (BFGS asked, CMA run)
+    and a q = 8 MGFI batch under a traced one (sum x <= 1.5), and MOBO's
+    ask on the tri-sphere (n = 120: a 3-output fit, whiten's 4 right-hand
+    sides)."""
+    from bayesian_optimization_tpu_torch import (
+        BO, MOBO, AcquisitionArgmax, ConstraintProgram, RealSpace,
+    )
+
+    X, y = _sin_data(200)
+    enc = RealSpace([[0.0, 1.0]] * 5).encoding()
+    c0 = _counts()
+    names = ("matern_fused", "matern_fused_bwd", "whiten_fused")
+    if path in ("hmc_fit", "vi_fit"):
+        gp = _gp(dev, optimizer=path[:-4].upper())
+        gp.hmc_warmup, gp.n_ensemble, gp.vi_steps = 16, 8, 100
+        gp.fit(X, y)
+        assert np.isfinite(gp.log_likelihood_) and np.all(np.isfinite(gp.theta_samples_))
+    elif path.endswith("_fit"):
+        gp = _gp(dev, corr="absolute_exponential" if path.startswith("absolute") else ("matern", 3.5))
+        gp.fit(X, y)
+        assert np.isfinite(gp.log_likelihood_)
+        names = ("whiten_fused",)
+    elif path == "host_constraint":
+        def g_host(x):  # through np.array: it runs on the host
+            return float(np.sum(np.array(list(x), dtype=float))) - 1.5
+
+        gp = _gp(dev).fit(X, y)
+        opt = BO(search_space=RealSpace([[0.0, 1.0]] * 5), obj_fun=_sphere, ineq_fun=g_host, model=gp,
+                 acquisition_optimization={"optimizer": "BFGS"}, random_seed=0, device=dev)
+        assert not opt._constraints.traceable and opt._optimizer_name == "OnePlusOne_Cholesky_CMA"
+        am = opt._argmax
+        u, v = am(gp.posterior, gp.config, "EI", {"plugin": float(y.min()), "_penalty_t": 10.0 + am.max_FEs})
+        assert g_host(u) <= 0.0 and np.isfinite(v)
+        names = ("matern_fused", "whiten_fused")
+    elif path == "constrained_batch":
+        gp = _gp(dev).fit(X, y)
+        cp = ConstraintProgram(enc, g=lambda x: np.sum(x) - 1.5, device=dev)
+        am = AcquisitionArgmax(enc, method="BFGS", n_restart=25, seed=0, constraints=cp, device=dev)
+        pars = [{"plugin": float(y.min()), "t": t, "_penalty_t": 10.0 + am.max_FEs}
+                for t in np.linspace(0.5, 4.0, 8)]
+        us, vs = am.batch(gp.posterior, gp.config, "MGFI", pars)
+        assert all(np.sum(u) - 1.5 <= 0.0 for u in us) and np.all(np.isfinite(vs))
+    else:
+        opt = MOBO(search_space=RealSpace([[0.0, 1.0]] * 5, random_seed=0),
+                   obj_fun=[lambda x, c=c: float(np.sum((np.asarray(x) - c) ** 2)) for c in (0.2, 0.5, 0.8)],
+                   n_obj=3, DoE_size=10, max_FEs=10 ** 6, random_seed=0, device=dev)
+        Xm = np.random.default_rng(16).uniform(0, 1, (120, 5))
+        opt.tell(Xm.tolist(), np.stack([((Xm - c) ** 2).sum(1) for c in (0.2, 0.5, 0.8)], axis=1))
+        assert len(opt.ask()) == 1
+    torch.cuda.synchronize()
+    assert _launched(c0, names)

@@ -4,7 +4,7 @@ against the JAX package's Pallas kernels, on the CPU.
 The Pallas kernels run in interpret mode, as tests/test_pallas.py runs
 them; the same numpy inputs go to both packages. The CUDA kernels
 themselves are held against these twins on the card by
-tests/test_torch_cuda_kernels.py and chip_smoke.py.
+tests/test_torch_cuda_kernels.py.
 """
 import math
 
