@@ -16,8 +16,10 @@
 // chain of dependent steps of the recursion: 2 m + 5 dot products, each a
 // warp-shuffle reduction, one after the other.
 //
-// Design: one warp a live lane, 4 lanes a block, a grid over the trip's live
-// lanes `idx` only, so a lane that is not live is never read or written. A
+// Design: one warp a live lane, 4 lanes a block, a grid over the trip's index
+// `idx` only, so a lane that is not live is never read or written: neither
+// one left out of idx nor one whose entry is -1 (a trip at the full width of
+// the lanes names its lanes that are not live so, and its shapes stay fixed). A
 // warp's thread owns the elements i = lane, lane + 32, ... of each of the
 // lane's d-vectors, so any d runs (a strided loop) and no thread reads an
 // element another thread writes; the recursion's working vector lives in
@@ -66,6 +68,7 @@ lbfgs_update_kernel(State st, const long long* __restrict__ idx, const float* __
   const int j = blockIdx.x * kLanesPerBlock + (threadIdx.x >> 5);
   if (j >= n_live) return;  // the whole warp: j is the warp's
   const long long r = idx[j];
+  if (r < 0) return;  // an entry of -1 names no lane
   const float f = st.f[r], t = st.t[r], ft = f_a[j];
   const long long n_probe = st.n_probe[r];
 
@@ -189,8 +192,9 @@ lbfgs_update_kernel(State st, const long long* __restrict__ idx, const float* __
 
 // ws (float32) and iws (int64): the lanes' state, laid out as above, for R
 // lanes of d variables and a history of m; idx (n_live,) int64 the live
-// lanes; f_a (n_live,), g_a (n_live, d) their values and gradients at the
-// trial points z_trial (R, d). Returns the launch's cudaError_t.
+// lanes, an entry of -1 naming none; f_a (n_live,), g_a (n_live, d) their
+// values and gradients at the trial points z_trial (R, d). Returns the
+// launch's cudaError_t.
 extern "C" int botorch_lbfgs_update(void* ws, void* iws, const void* idx, const void* f_a,
                                     const void* g_a, const void* z_trial, int n_live, int R, int d,
                                     int m, double c1, int max_ls, void* stream) {

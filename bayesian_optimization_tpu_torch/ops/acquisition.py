@@ -12,6 +12,7 @@ criterion's parameters; GEI's order g is a Python integer.
 from __future__ import annotations
 
 import math
+import numbers
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -33,8 +34,11 @@ def _pdf(u):
 
 def _lane(v, like: torch.Tensor):
     """A parameter as a tensor on like's device and dtype: a number becomes a
-    0-d tensor, a per-lane vector stays (N,); one already there is not
-    copied."""
+    0-d tensor, filled there (not copied from the host, which a CUDA graph's
+    capture cannot do), a per-lane vector stays (N,); one already there is
+    not copied."""
+    if isinstance(v, numbers.Real):
+        return torch.full((), v, dtype=like.dtype, device=like.device)
     return torch.as_tensor(v, dtype=like.dtype, device=like.device)
 
 

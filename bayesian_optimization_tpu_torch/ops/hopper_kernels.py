@@ -28,7 +28,8 @@ has three parts here:
 `lbfgs_update_plain` and the choice between them are ops/optimize.py's, as
 the float64 route of the Matern covariance is models/kernels.py's. It
 raises on any input but a CUDA float32 state; the card tests hold it
-against the twin, and `lbfgs_update_fused.launches` counts it.
+against the twin, and `lbfgs_update_fused.launches` counts it. An index
+entry of -1 names no lane: the kernel leaves it alone, as the twin does.
 
 The backward and the second derivative sum their blocks' partials in the
 same launch: the last block to arrive adds them up, found through an
@@ -594,10 +595,10 @@ def lbfgs_update_fused(st, idx, f_a, g_a, z_trial, max_linesearch_steps: int, c1
     """One trip's update of the live lanes idx of a batched L-BFGS state st
     (`ops.optimize.LbfgsState`: a CUDA float32 workspace `ws` and an int64
     one `iws`, laid out as csrc/lbfgs.cu reads them), as
-    `ops.optimize.lbfgs_update_plain` defines it, in one launch: one warp a
-    live lane, the state rewritten in place. Any other device or dtype
-    raises, as does a failed build or launch. Each launch adds one to
-    `lbfgs_update_fused.launches`."""
+    `ops.optimize.lbfgs_update_plain` defines it, in one launch: one warp an
+    entry of idx, the state rewritten in place; an entry of -1 is left
+    alone. Any other device or dtype raises, as does a failed build or
+    launch. Each launch adds one to `lbfgs_update_fused.launches`."""
     ws = st.ws
     _require_cuda_f32("lbfgs_update_fused", ws=ws, z_trial=z_trial)
     # the values and gradients in the state's dtype, as the twin takes them
@@ -624,9 +625,25 @@ def lbfgs_update_fused(st, idx, f_a, g_a, z_trial, max_linesearch_steps: int, c1
 lbfgs_update_fused.launches = 0
 
 
+# every launch counter: (wrapper, attribute)
+_LAUNCH_COUNTERS = ((matern_fused, "launches"), (matern_fused, "bwd_launches"),
+                    (matern_fused, "bwd2_launches"), (whiten_fused, "launches"),
+                    (lbfgs_update_fused, "launches"))
+
+
+def launch_counts() -> tuple:
+    """Every launch counter's value, in a fixed order."""
+    return tuple(getattr(fn, name) for fn, name in _LAUNCH_COUNTERS)
+
+
+def add_launch_counts(counts, sign: int = 1) -> None:
+    """Add `sign` x `counts` (as `launch_counts` orders them) to the counters:
+    a replayed CUDA graph launches again what its capture launched, with no
+    call of a wrapper, and a capture itself launches nothing."""
+    for (fn, name), n in zip(_LAUNCH_COUNTERS, counts):
+        setattr(fn, name, getattr(fn, name) + sign * n)
+
+
 def reset_launch_counts() -> None:
-    matern_fused.launches = 0
-    matern_fused.bwd_launches = 0
-    matern_fused.bwd2_launches = 0
-    whiten_fused.launches = 0
-    lbfgs_update_fused.launches = 0
+    for fn, name in _LAUNCH_COUNTERS:
+        setattr(fn, name, 0)

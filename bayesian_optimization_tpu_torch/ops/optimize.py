@@ -19,22 +19,37 @@ history, the two-loop direction -- is one launch of a CUDA kernel on a CUDA
 float32 state (`hopper_kernels.lbfgs_update_fused`), its plain twin
 `lbfgs_update_plain`, which defines it, on the CPU and in float64.
 
+An objective that launches only device work and keeps its lanes apart (the
+acquisition argmax's plain GP criterion, `capturable`) has a loop of its
+own on a CUDA float32 state, `_lbfgs_graphed`: every trip runs at the full
+width of the lanes under a device-side mask of the live ones, so its shapes
+never change, and after the run's first trip it is one CUDA graph, captured
+once a run and replayed once a trip. The host then issues one launch a trip
+and reads the next trip's live count, which the graph writes to pinned host
+memory, in place of the ~110 launches of the objective, its autograd
+backward and the update.
+
 Inside a timed phase (utils/logging.py) each trip is timed by the spans
 "lbfgs.forward", "lbfgs.backward", "lbfgs.update" and "host_sync" (the
 live-lane read) and counted in "lbfgs.trips", "lbfgs.lane_evals" and, where
 the kernel runs the update, "lbfgs.fused_updates"; a run's concluded steps,
-"lbfgs.steps", are read once at its end. Outside a phase none of it costs
-more than a lookup, and no number changes.
+"lbfgs.steps", are read once at its end. A replayed trip is the span
+"lbfgs.forward" (the replay) and "host_sync" (the live count), and counts
+one "lbfgs.graph_replays" besides; a graphed run's first trip is timed as
+an eager trip, and "lbfgs.capture" times its capture alone. Outside a
+phase none of it costs more than a lookup, and no number changes.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable, NamedTuple
 
 import torch
 
-from ..utils.logging import count, host_sync, in_phase, span
-from .hopper_kernels import lbfgs_update_fused
+from ..utils.logging import count, host_sync, in_phase, no_phase, profiler_range, span
+from .hopper_kernels import add_launch_counts, launch_counts, lbfgs_update_fused
 
 _Z_CLIP = 12.0  # |z| beyond this is numerically saturated in f32
 
@@ -175,7 +190,13 @@ def lbfgs_update_plain(st: LbfgsState, idx, f_a, g_a, z_trial, max_linesearch_st
     stays, and is done: the stall exit of the reference), stores the pair
     (s, y) in slot k mod m if its curvature holds, and takes its next
     direction by `_direction`, with t = 1. Every other live lane halves t.
-    Lanes outside idx are not touched."""
+    Lanes outside idx are not touched, nor is an entry of -1 on the CPU: it
+    names no lane, and the twin drops it first. (On the card a trip at the
+    full width of the lanes runs the kernel, and the twin is handed live
+    lanes only: dropping an entry there would read the device.)"""
+    if idx.device.type == "cpu":
+        keep = idx >= 0
+        idx, f_a, g_a = idx[keep], f_a[keep], g_a[keep]
     m = st.S.shape[1]
     dt = st.ws.dtype
     z, f, g, S, Y, rho, k, gamma, p, gTp, t, n_probe, n_accept, done = (
@@ -254,9 +275,144 @@ def _lbfgs_batched(zfun, z0, max_iter: int, memory_size: int, max_linesearch_ste
         z_trial, f_a, g_a = _value_and_grad(zfun, st.z, st.t, st.p, idx)
         with span("lbfgs.update"):
             _update(st, idx, f_a, g_a, z_trial, max_linesearch_steps)
+    _count_steps(st)
+    return st.z, st.f
+
+
+def _count_steps(st: LbfgsState) -> None:
     if in_phase():  # the lanes' concluded steps, read once a run
         with host_sync():
             count("lbfgs.steps", int(st.n_accept.sum()))
+
+
+def _masked_trip(zfun, st: LbfgsState, lanes, max_iter: int, max_linesearch_steps: int):
+    """One trip at the full width of the R lanes (lanes = arange(R)), its
+    shapes the same every trip: the live lanes are a device-side mask,
+    handed to the update as the index where(live, lane, -1), and every
+    lane's trial point is evaluated and differentiated. What a lane that is
+    not live computes is thrown away; the lanes are independent, so a live
+    lane computes what the live-lane loop's trip computes. Timed by the
+    spans of `_lbfgs_batched`'s trip. Returns the next trip's live count, a
+    0-d device tensor."""
+    def live():
+        return (st.done == 0) & (st.n_accept < max_iter + 1)
+
+    with span("lbfgs.forward"), torch.enable_grad():
+        idx = torch.where(live(), lanes, -1)
+        z_trial = (st.z + st.t[:, None] * st.p).clamp(-_Z_CLIP, _Z_CLIP)
+        zz = z_trial.detach().requires_grad_(True)
+        f = zfun(zz, lanes)
+        total = f.sum()
+    with span("lbfgs.backward"):
+        (g,) = torch.autograd.grad(total, zz)
+    with span("lbfgs.update"):
+        _update(st, idx, f.detach(), g, z_trial, max_linesearch_steps)
+        return live().sum()
+
+
+# a thread's capture context a CUDA device (_capture_context)
+_CAPTURE = threading.local()
+
+
+class _CaptureContext:
+    """What a thread's graphed runs on one device share: the side stream a
+    run's first trip and its capture run on (so the stream's workspaces and
+    the Matern backward's arrival counters exist before the capture), the
+    memory pool every capture allocates from, the pinned word a graph writes
+    the next trip's live count to, and the last run's graph, held until the
+    next capture: a pool is shared only while a graph holds it, and the
+    last graph's memory is the next one's."""
+
+    def __init__(self, device):
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.live = torch.zeros((), dtype=torch.long, pin_memory=True)
+        self.graph = None
+
+
+def _capture_context(device) -> _CaptureContext:
+    by_device = _CAPTURE.__dict__.setdefault("by_device", {})
+    if device not in by_device:
+        by_device[device] = _CaptureContext(device)
+    return by_device[device]
+
+
+def _capture_trip(ctx: _CaptureContext, trip) -> torch.cuda.CUDAGraph:
+    """One trip, `trip()` (its live count copied to ctx.live), captured into
+    a CUDA graph on ctx's stream and pool, and held in ctx until the next
+    capture. A capture that raises (the objective read the device) takes
+    the pool with it, since the allocator may still count it as the failed
+    graph's: the next capture takes a fresh one, and a graph held from
+    before keeps its own."""
+    graph = torch.cuda.CUDAGraph()
+    with no_phase():
+        graph.capture_begin(pool=ctx.pool, capture_error_mode="thread_local")
+        try:
+            ctx.live.copy_(trip(), non_blocking=True)
+            graph.capture_end()
+        except BaseException:
+            with contextlib.suppress(RuntimeError):
+                graph.capture_end()
+            ctx.pool = torch.cuda.graph_pool_handle()
+            raise
+    ctx.graph = graph
+    return graph
+
+
+def _lbfgs_graphed(zfun, z0, max_iter: int, memory_size: int, max_linesearch_steps: int):
+    """`_lbfgs_batched` on a CUDA float32 state for an objective that launches
+    only device work: the same lanes and steps, every trip a
+    `_masked_trip`. A lane's values then round alike at every trip (the
+    width never changes), as the JAX package's fixed-shape loop rounds
+    them, so a lane at its optimum seldom stalls on a rounding difference
+    and replays to `max_iter` as there. The run's first trip runs eagerly
+    on a side stream (it warms up what the capture needs), timed as an
+    eager trip; then one trip is captured into a CUDA graph (the span
+    "lbfgs.capture"), with the forward, the backward on the autograd
+    engine's thread and the update launch, and every later trip is one
+    replay of it, inside the profiler range "lbfgs.graph". The graph also
+    copies the next trip's live count to pinned host memory, which the host
+    reads once a trip; it stops at 0. A replay adds to the kernels' launch
+    counters what the capture launched, which the capture itself does not
+    count."""
+    st = lbfgs_state(z0, memory_size)
+    device = z0.device
+    lanes = torch.arange(z0.shape[0], device=device)
+    n_live = z0.shape[0] if max_iter >= 0 else 0
+    ctx = _capture_context(device)
+    main = torch.cuda.current_stream(device)
+
+    def trip():
+        return _masked_trip(zfun, st, lanes, max_iter, max_linesearch_steps)
+
+    ctx.stream.wait_stream(main)
+    with torch.cuda.stream(ctx.stream):
+        if n_live:
+            count("lbfgs.trips")
+            count("lbfgs.lane_evals", n_live)
+            ctx.live.copy_(trip(), non_blocking=True)
+            with host_sync():
+                ctx.stream.synchronize()
+                n_live = int(ctx.live)
+        if n_live:
+            with span("lbfgs.capture"):
+                before = launch_counts()
+                graph = _capture_trip(ctx, trip)
+                per_trip = tuple(a - b for a, b in zip(launch_counts(), before))
+                add_launch_counts(per_trip, -1)
+    main.wait_stream(ctx.stream)
+    while n_live:
+        count("lbfgs.trips")
+        count("lbfgs.lane_evals", n_live)
+        count("lbfgs.graph_replays")
+        count("lbfgs.fused_updates")
+        with span("lbfgs.forward"), profiler_range("lbfgs.graph"):
+            graph.replay()
+            add_launch_counts(per_trip)
+        with host_sync():
+            main.synchronize()
+            n_live = int(ctx.live)
+    _count_steps(st)
     return st.z, st.f
 
 
@@ -269,6 +425,7 @@ def minimize_restarts(
     memory_size: int = 10,
     max_linesearch_steps: int = 20,
     lane_index: bool = False,
+    capturable: bool = False,
 ) -> MinimizeResult:
     """Minimize `fun` from each row of x0 (R, d) inside [lo, hi], all
     restarts in parallel. `fun` maps a batch (R', d) -> (R',) and must be
@@ -276,15 +433,19 @@ def minimize_restarts(
     only the live lanes, so an objective whose parameters differ per lane
     (the q criteria of a batch, flattened into one run) asks for
     lane_index=True and is called as fun(X, idx), idx (R',) the lanes' rows
-    of x0."""
+    of x0. capturable=True says that `fun` and its backward launch only
+    device work, with no read of the device and no copy from the host: a
+    CUDA float32 run then replays its trips as one CUDA graph over every
+    lane (`_lbfgs_graphed`), which calls fun on all R rows."""
     lo = torch.as_tensor(lo, dtype=x0.dtype, device=x0.device)
     hi = torch.as_tensor(hi, dtype=x0.dtype, device=x0.device)
 
     def zfun(z, idx):
         return fun(to_box(z, lo, hi), idx) if lane_index else fun(to_box(z, lo, hi))
 
-    zs, vals = _lbfgs_batched(zfun, from_box(x0, lo, hi), max_iter, memory_size,
-                              max_linesearch_steps)
+    graphed = capturable and x0.device.type == "cuda" and x0.dtype == torch.float32
+    run = _lbfgs_graphed if graphed else _lbfgs_batched
+    zs, vals = run(zfun, from_box(x0, lo, hi), max_iter, memory_size, max_linesearch_steps)
     xs = to_box(zs, lo, hi)
     vals = torch.where(torch.isfinite(vals), vals, torch.full_like(vals, float("inf")))
     best = torch.argmin(vals)

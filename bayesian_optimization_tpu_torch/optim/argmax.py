@@ -128,7 +128,20 @@ def make_unit_criterion(
     constraints: optional `ConstraintProgram`; its dynamic penalty is
     subtracted from the criterion (ref parity: the `Penalized` wrapper of
     optim/__init__.py:33-52, with autograd in place of the reference's
-    finite-difference penalty gradient when the callables trace)."""
+    finite-difference penalty gradient when the callables trace).
+
+    The criterion's `capturable` is True where it and its gradient launch
+    only device work, with no read of the device and no copy from the host,
+    so that an L-BFGS trip over it can be captured in a CUDA graph: the
+    point GP posterior's criterion under a named acquisition (EI, PI,
+    EpsilonPI, UCB, MGFI, GEI<g>), with or without PCA-BO's box penalty,
+    on an all-real space, a named kernel and a constant or linear trend.
+    Not so: a ConstraintProgram (its callables may read the device), a
+    forest (a random forest's posterior or a NonparametricTrend's), a
+    hyperparameter ensemble, EHVI and qEHVI, a kernel given as a tuple (a
+    generic nu evaluates scipy on the host), the quadratic trend (it
+    indexes with a host array) and a space with a discrete variable (its
+    level tables are copied to the device)."""
     reserved = {k: v for k, v in acq_params.items() if k.startswith("_")}
     pca = {k: reserved[k] for k in _PCA_KEYS if k in reserved}
     penalty_t = reserved.get("_penalty_t", 10.0)
@@ -212,6 +225,10 @@ def make_unit_criterion(
             value = torch.where(pen < 0.0, pen, value)
         return apply_penalty(value, Uf)
 
+    crit.capturable = (isinstance(config, GPConfig) and config.n_ensemble == 0
+                       and prior_state is None and constraints is None
+                       and isinstance(config.kernel, str) and config.trend in ("constant", "linear")
+                       and bool(np.all(encoding.is_real)))
     return crit
 
 
@@ -240,12 +257,16 @@ def _select_feasible(constraints, X, F, x_fallback, f_fallback, groups: int = 1)
 def _bfgs_lanes(crit, x0, max_iter: int):
     """Every lane's end (x, value) of one batched L-BFGS from x0. x0 and
     `crit` are as `run_cma` takes them: each mesh entry runs its lanes on
-    its device (the lanes are independent), then one gather."""
+    its device (the lanes are independent), then one gather. On the
+    one-entry mesh a `capturable` criterion's CUDA float32 run replays its
+    trips as a CUDA graph (ops/optimize.py `_lbfgs_graphed`)."""
     pop = as_population(x0)
+    one_entry = pop.mesh.size == 1
 
     def lanes(crit, x):
         zeros = torch.zeros(x.shape[-1], dtype=x.dtype, device=x.device)
-        res = maximize_restarts(crit, x, zeros, zeros + 1.0, max_iter=max_iter, lane_index=True)
+        res = maximize_restarts(crit, x, zeros, zeros + 1.0, max_iter=max_iter, lane_index=True,
+                                capturable=one_entry and getattr(crit, "capturable", False))
         return res.x, res.fun
 
     ends = pop.mesh.map(lanes, pop.mesh.per_entry(crit), pop.chunks)

@@ -12,7 +12,8 @@ Below the phases, `span(name)` times a block inside the running phase and
 "<phase>/<name>" of the phase's PhaseTimer; `host_sync()` is the span of a
 device-to-host read. They keep totals and counts only, cost one lookup
 where no phase runs (a bare `GaussianProcess.fit`), and open a profiler
-range only while a profiler runs.
+range only while a profiler runs; `profiler_range(name)` opens such a
+range alone.
 """
 from __future__ import annotations
 
@@ -207,9 +208,46 @@ def host_sync(n: int = 1):
     return _Span(cur[0], f"{cur[1]}/host_sync", "host_sync")
 
 
+class _Range:
+    __slots__ = ("name", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = _open_range(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+        return False
+
+
+def profiler_range(name: str):
+    """Context manager: a profiler range named `name` around the block while
+    a profiler runs (an operator's range, as a span's), and nothing else: no
+    seconds, no call, so the span around it keeps the block's time. It
+    names device work that no operator launches, such as a CUDA graph's
+    replay, whose kernels the profiler links to it."""
+    return _Range(name) if _profiler_enabled() else _NO_SPAN
+
+
 def in_phase() -> bool:
     """Whether a timed phase is running (its spans and counters record)."""
     return _PHASE.get() is not None
+
+
+@contextlib.contextmanager
+def no_phase():
+    """Inside, no phase runs, so no span or counter records: for work that
+    is only recorded, as a CUDA graph's capture is (its replays run it, and
+    are counted then)."""
+    token = _PHASE.set(None)
+    try:
+        yield
+    finally:
+        _PHASE.reset(token)
 
 
 def timed_phase(phase: str):

@@ -1426,9 +1426,10 @@ def test_likelihood_and_gradient_against_the_cpu(dev, n, rows, kernel):
 def test_fit_and_ei_argmax_on_the_card(dev, monkeypatch):
     """The main path at n = 200: a cold fit, a warm refit and the BFGS EI
     argmax (25 restarts). Every kernel launches, the L-BFGS update once a
-    trip (trips counted at the objective), the factorisation is sound (min
-    pivot above PIV_TOL, finite likelihood and gamma), the mean is within
-    0.1 of y at 64 training points, and the winner is finite."""
+    trip (the fits' trips counted at the objective, the graphed argmax's by
+    its phase counter), the factorisation is sound (min pivot above
+    PIV_TOL, finite likelihood and gamma), the mean is within 0.1 of y at
+    64 training points, and the winner is finite."""
     from bayesian_optimization_tpu_torch import AcquisitionArgmax, RealSpace
     from bayesian_optimization_tpu_torch.models.likelihood import PIV_TOL
     from bayesian_optimization_tpu_torch.ops import optimize
@@ -1447,10 +1448,13 @@ def test_fit_and_ei_argmax_on_the_card(dev, monkeypatch):
     c0 = _counts()
     gp.fit(X, y)
     gp.fit(X, y)
-    u, val = argmax(gp.posterior, gp.config, "EI", {"plugin": float(y.min())})
+    phase = _InPhase()
+    u, val = phase.run(argmax, gp.posterior, gp.config, "EI", {"plugin": float(y.min())})
     torch.cuda.synchronize()
-    assert _launched(c0)
-    assert _counts()["lbfgs_update_fused"] - c0["lbfgs_update_fused"] == trips[0] > 0
+    argmax_trips = phase.counter("lbfgs.trips")
+    assert _launched(c0) and argmax_trips > 0 and phase.counter("lbfgs.graph_replays") > 0
+    assert _counts()["lbfgs_update_fused"] - c0["lbfgs_update_fused"] == trips[0] + argmax_trips
+    assert trips[0] > 0
     assert u.shape == (5,) and np.all(np.isfinite(u)) and np.isfinite(val)
     assert float(gp.posterior.min_pivot) > PIV_TOL
     assert np.isfinite(gp.log_likelihood_) and bool(torch.isfinite(gp.posterior.gamma).all())
@@ -2211,3 +2215,241 @@ def test_paths_run_on_the_card(dev, path):
         assert len(opt.ask()) == 1
     torch.cuda.synchronize()
     assert _launched(c0, names)
+
+
+class _InPhase:
+    """Runs a call as the phase "arg_max_acquisition", so that the port's
+    spans and counters record under it."""
+
+    def __init__(self):
+        from bayesian_optimization_tpu_torch.utils.logging import PhaseTimer
+
+        self._timer = PhaseTimer()
+
+    def run(self, fn, *args, **kw):
+        from bayesian_optimization_tpu_torch.utils.logging import timed_phase
+
+        return timed_phase("arg_max_acquisition")(lambda self: fn(*args, **kw))(self)
+
+    def counter(self, name):
+        return self._timer.snapshot().get(f"arg_max_acquisition/{name}", 0)
+
+
+def _cell_posterior(dev, d, n, dtype=torch.float32):
+    """A GP posterior on log-Rosenbrock data at n points in [0, 1]^d (the
+    cells' F8 shape), laid out at the next 128-multiple of n as a fit lays
+    its rows out; and its plugin, the data's minimum."""
+    from bayesian_optimization_tpu_torch.models.likelihood import GPConfig, posterior_state
+
+    rng = np.random.default_rng(d)
+    X = rng.uniform(0.0, 1.0, (n, d))
+    x = 10.0 * X - 5.0
+    y = np.log1p((100.0 * (x[:, :-1] ** 2 - x[:, 1:]) ** 2 + (x[:, :-1] - 1.0) ** 2).sum(1))
+    y = (y - y.mean()) / y.std()
+    n_pad = 128 * math.ceil(n / 128)
+    Xp, Yp = np.zeros((n_pad, d)), np.zeros((n_pad, 1))
+    Xp[:n], Yp[:n, 0] = X, y
+    mask = (np.arange(n_pad) < n).astype(float)
+    par = np.concatenate([rng.uniform(-0.3, 0.3, d) + math.log10(12.0 / d), [0.0]])
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    config = GPConfig()
+    state = posterior_state(t(par), t(Xp), t(Yp), t(mask[:, None]), t(mask), n, 1e-6,
+                            t(np.zeros((1, 1))), config)
+    return state, config, float(y.min())
+
+
+# the cells' argmax: (d, n, lanes, argmax_ascent's limit)
+ARGMAX_CELLS = [(5, 475, 25, 1e-2), (20, 1800, 100, 1e-3)]
+
+
+@pytest.mark.parametrize("d, n, R, limit", ARGMAX_CELLS, ids=["f8d5", "f8d20"])
+def test_graphed_argmax_against_the_eager_loop(dev, monkeypatch, d, n, R, limit):
+    """The BFGS EI argmax at each cell's shapes (25 lanes of 5 against 512
+    rows, 100 of 20 against 1920), three asks from one seed: the graphed run
+    against the eager live-lane loop (`_lbfgs_batched` put in its place) on
+    the same posterior and pools. The winners' EI agree within the cell's
+    `argmax_ascent` limit (relative); every trip after an ask's first is a
+    replay (`lbfgs.graph_replays` = trips - 1 an ask); the Matern backward
+    and the update kernel launch once a trip, and `lbfgs.fused_updates`
+    counts every trip."""
+    from bayesian_optimization_tpu_torch import AcquisitionArgmax, RealSpace
+    from bayesian_optimization_tpu_torch.ops import hopper_kernels as hk
+    from bayesian_optimization_tpu_torch.ops import optimize
+
+    state, config, plugin = _cell_posterior(dev, d, n)
+    enc = RealSpace([[0.0, 1.0]] * d).encoding()
+    args = (state, config, "EI", {"plugin": plugin})
+    graphed = AcquisitionArgmax(enc, method="BFGS", n_restart=R, seed=11, device=dev)
+    phase = _InPhase()
+    vals = []
+    for _ in range(3):
+        trips0, replays0 = phase.counter("lbfgs.trips"), phase.counter("lbfgs.graph_replays")
+        bwd0, upd0 = hk.matern_fused.bwd_launches, hk.lbfgs_update_fused.launches
+        vals.append(phase.run(graphed, *args)[1])
+        trips = phase.counter("lbfgs.trips") - trips0
+        assert phase.counter("lbfgs.graph_replays") - replays0 == trips - 1 > 0
+        assert hk.matern_fused.bwd_launches - bwd0 == trips
+        assert hk.lbfgs_update_fused.launches - upd0 == trips
+    assert phase.counter("lbfgs.fused_updates") == phase.counter("lbfgs.trips")
+    assert phase.counter("lbfgs.capture:n") == 3  # one capture an ask
+    monkeypatch.setattr(optimize, "_lbfgs_graphed", optimize._lbfgs_batched)
+    eager = AcquisitionArgmax(enc, method="BFGS", n_restart=R, seed=11, device=dev)
+    phase_e = _InPhase()
+    for v in vals:
+        ve = phase_e.run(eager, *args)[1]
+        assert abs(v - ve) <= limit * max(abs(v), abs(ve)) and v > 0, (v, ve)
+    assert phase_e.counter("lbfgs.graph_replays") == 0 and phase_e.counter("lbfgs.trips") > 0
+
+
+def test_graphed_argmax_under_the_profiler(dev):
+    """A graphed argmax under torch.profiler captures, replays and traces:
+    the update kernel's device events are one a trip, and the winner is the
+    bits of the same run without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bayesian_optimization_tpu_torch import AcquisitionArgmax, RealSpace
+
+    state, config, plugin = _cell_posterior(dev, 5, 475)
+    enc = RealSpace([[0.0, 1.0]] * 5).encoding()
+    args = (state, config, "EI", {"plugin": plugin})
+    plain = AcquisitionArgmax(enc, method="BFGS", n_restart=25, seed=5, device=dev)(*args)
+    phase = _InPhase()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = phase.run(AcquisitionArgmax(enc, method="BFGS", n_restart=25, seed=5, device=dev),
+                           *args)
+        torch.cuda.synchronize()
+    assert np.array_equal(traced[0], plain[0]) and traced[1] == plain[1]
+    updates = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "lbfgs_update_kernel" in e.name]
+    assert phase.counter("lbfgs.graph_replays") > 0
+    assert len(updates) == phase.counter("lbfgs.trips")
+
+
+@pytest.mark.parametrize("case", ["constrained", "float64", "sharded"])
+def test_argmaxes_that_take_the_eager_loop(dev, monkeypatch, case):
+    """A constrained criterion, a float64 state and a two-entry mesh run the
+    eager live-lane loop: the graphed loop is never called."""
+    from bayesian_optimization_tpu_torch import AcquisitionArgmax, ConstraintProgram, RealSpace
+    from bayesian_optimization_tpu_torch.ops import optimize
+    from bayesian_optimization_tpu_torch.parallel import make_particle_mesh
+
+    def refuse(*a):
+        raise AssertionError("the graphed loop ran")
+
+    monkeypatch.setattr(optimize, "_lbfgs_graphed", refuse)
+    dtype = torch.float64 if case == "float64" else torch.float32
+    state, config, plugin = _cell_posterior(dev, 5, 200, dtype)
+    enc = RealSpace([[0.0, 1.0]] * 5).encoding(dtype=dtype)
+    kw = {"constrained": {"constraints": ConstraintProgram(enc, g=lambda x: np.sum(x) - 2.0,
+                                                           device=dev)},
+          "float64": {}, "sharded": {"mesh": make_particle_mesh(devices=["cuda:0"] * 2)}}[case]
+    phase = _InPhase()
+    u, v = phase.run(AcquisitionArgmax(enc, method="BFGS", n_restart=10, seed=0, device=dev, **kw),
+                     state, config, "EI", {"plugin": plugin})
+    assert np.all(np.isfinite(u)) and np.isfinite(v) and phase.counter("lbfgs.trips") > 0
+    assert phase.counter("lbfgs.graph_replays") == 0
+
+
+@pytest.mark.parametrize("shape", [(25, 5, 10), (100, 20, 10), (7, 3, 4)], ids=str)
+def test_lbfgs_update_kernel_minus_one_guard(dev, shape):
+    """The kernel on a full-width index, its lanes that are not live named
+    -1 and their values and gradients NaN (never read): those lanes keep
+    their state bit for bit, and the others end with the bits of the
+    kernel's live-lane launch, and with the decisions of the twin on the
+    same index, run on a copy of the state on the CPU (where the twin
+    defines the -1 guard; its own test is a CPU test)."""
+    from bayesian_optimization_tpu_torch.ops import hopper_kernels as hk
+    from bayesian_optimization_tpu_torch.ops.optimize import (
+        LBFGS_C1, lbfgs_state, lbfgs_update_plain,
+    )
+
+    R, d, m = shape
+    for seed in range(3):
+        st, idx, f_a, g_a, z_trial, _ = _lbfgs_trip(dev, R, d, m, seed, 0.6)
+        live = _lbfgs_trip(dev, R, d, m, seed, 0.6)[0]
+        twin = lbfgs_state(st.z.cpu(), m)
+        twin.ws.copy_(st.ws.cpu())
+        twin.iws.copy_(st.iws.cpu())
+        named = torch.zeros(R, dtype=torch.bool, device=dev)
+        named[idx] = True
+        full = torch.where(named, torch.arange(R, device=dev), -1)
+        f_full = torch.full((R,), math.nan, device=dev).index_put((idx,), f_a)
+        g_full = torch.full((R, d), math.nan, device=dev).index_put((idx,), g_a)
+        before = {n: getattr(st, n).clone() for n in LBFGS_DECISIONS + LBFGS_VALUES}
+        hk.lbfgs_update_fused(st, full, f_full, g_full, z_trial, 20, LBFGS_C1)
+        hk.lbfgs_update_fused(live, idx, f_a, g_a, z_trial, 20, LBFGS_C1)
+        lbfgs_update_plain(twin, full.cpu(), f_full.cpu(), g_full.cpu(), z_trial.cpu(), 20)
+        torch.cuda.synchronize()
+        assert torch.equal(st.ws.nan_to_num(nan=7.0), live.ws.nan_to_num(nan=7.0))
+        assert torch.equal(st.iws, live.iws)
+        for name in LBFGS_DECISIONS:
+            assert torch.equal(getattr(st, name).cpu(), getattr(twin, name)), (seed, name)
+        for name, old in before.items():
+            assert torch.equal(getattr(st, name)[~named].nan_to_num(nan=7.0),
+                               old[~named].nan_to_num(nan=7.0)), (seed, name)
+
+
+def _quadratic_lanes(dev, R=16, d=4):
+    """A convex quadratic over lanes, (R, d) -> (R,), launching device work
+    only; starts in its box [-2, 2]^d."""
+    gen = torch.Generator().manual_seed(3)
+    A = torch.randn(d, d, generator=gen)
+    A = (A @ A.T / d + 0.5 * torch.eye(d)).to(dev)
+    b = torch.randn(d, generator=gen).to(dev)
+    x0 = (4.0 * torch.rand((R, d), generator=gen) - 2.0).to(dev)
+    return (lambda x: 0.5 * ((x @ A) * x).sum(-1) - x @ b), x0
+
+
+def test_graphed_loop_after_a_failed_capture(dev):
+    """An objective marked capturable that reads the device (`.item()`)
+    runs its eager first trip, then its capture raises. On the same thread
+    the next graphed runs still capture and replay, both where the failed
+    capture was the thread's first (no graph held its pool) and where a
+    graph was held from before: each such run ends with the bits of the
+    same run on a thread that never failed."""
+    import threading
+
+    from bayesian_optimization_tpu_torch.ops.optimize import minimize_restarts
+
+    fun, x0 = _quadratic_lanes(dev)
+
+    def reads(x):
+        return fun(x) + 0.0 * float(x.sum().item())
+
+    def graphed(f):
+        phase = _InPhase()
+        res = phase.run(minimize_restarts, f, x0, -2.0, 2.0, max_iter=30, capturable=True)
+        torch.cuda.synchronize()
+        return res, phase.counter("lbfgs.graph_replays")
+
+    def on_a_thread(steps):
+        out, errors = [], []
+
+        def body():
+            try:
+                for step in steps:
+                    if step == "fails":
+                        with pytest.raises(RuntimeError):
+                            graphed(reads)
+                        out.append(None)
+                    else:
+                        out.append(graphed(fun))
+            except BaseException as e:  # reported on the test's thread
+                errors.append(e)
+
+        t = threading.Thread(target=body)
+        t.start()
+        t.join()
+        if errors:
+            raise errors[0]
+        return out
+
+    clean = on_a_thread(["runs"])[0]
+    runs = [r for r in on_a_thread(["fails", "runs", "fails", "runs"]) if r is not None]
+    assert clean[1] > 0 and len(runs) == 2
+    for res, replays in runs:
+        assert replays == clean[1]
+        assert torch.equal(res.x, clean[0].x) and torch.equal(res.fun, clean[0].fun)
